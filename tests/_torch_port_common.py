@@ -1,0 +1,41 @@
+"""Shared set-up for the port's tests: one generator built in both packages
+from the same preset, with the JAX weights (and BN statistics from a
+train-mode apply) carried into the port by name."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import torch
+
+from tpugan.configs import get_preset
+from tpugan.models import build_models
+from tpugan_torch.ckpt.from_jax import load_jax_generator
+from tpugan_torch.configs import get_preset as port_preset
+from tpugan_torch.models.registry import build_generator
+
+
+def to_numpy(tree):
+    return jax.tree_util.tree_map(lambda a: np.asarray(a, np.float32), tree)
+
+
+def twin_generators(preset, overrides, precision="fp32", seed=0,
+                    train_batch=8, rng=None):
+    """(cfg, jax g, params, state, port cfg, port g): BN running stats come
+    from one train-mode apply on a seeded batch."""
+    cfg = get_preset(preset).override(overrides)
+    g, _ = build_models(cfg.model, precision)
+    params, state = g.init(jax.random.PRNGKey(seed))
+    rng = rng or np.random.default_rng(seed)
+    z = jnp.asarray(rng.standard_normal((train_batch, cfg.model.nz)),
+                    jnp.float32)
+    if cfg.model.arch == "cdcgan":
+        y = jnp.asarray(np.arange(train_batch) % cfg.model.n_classes,
+                        jnp.int32)
+        _, state = g.apply(params, state, (z, y), train=True)
+    else:
+        _, state = g.apply(params, state, z, train=True)
+    pcfg = port_preset(preset).override(overrides)
+    tg = build_generator(pcfg.model, precision, device="cpu",
+                         generator=torch.Generator().manual_seed(seed))
+    load_jax_generator(tg, to_numpy(params), to_numpy(state))
+    return cfg, g, params, state, pcfg, tg.eval()

@@ -1,0 +1,81 @@
+"""Generator building blocks (port of ``tpugan/models/blocks.py``).
+
+- ``GHead``: Dense z -> (s0 x s0) map -> BatchNorm -> ReLU.  The Dense output
+  is reshaped as (N, s0, s0, c0), channels last, as in the JAX package.
+- ``GBlock``: ConvTranspose(4, 2, 1) -> BatchNorm -> ReLU, or ConvT -> Tanh
+  for the final layer.
+
+Under the "pallas" impl (``ops.convs.set_default_impl``) an eval-mode GBlock
+is one call of the fused kernel ``cuda_convt.convt_affine_act``: BatchNorm
+(or the conv bias) folds into its per-channel (a, b) epilogue.  A train-mode
+GBlock calls the bare kernel, then BatchNorm.  The kernel is forward-only.
+``DBlock`` / ``DTail`` come with the discriminator.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from tpugan_torch.nn.layers import BatchNorm, ConvTranspose, Dense, ReLU, Tanh
+from tpugan_torch.ops import convs, cuda_convt
+from tpugan_torch.ops.fused import bn_affine
+
+
+class GBlock(nn.Module):
+    """ConvT(k4,s2,p1) + BN + ReLU; ``final=True`` swaps BN+ReLU for Tanh."""
+
+    def __init__(self, cin, cout, *, batchnorm=True, final=False,
+                 kernel=4, stride=2, padding=1, dtype=torch.bfloat16,
+                 device="cuda", generator=None):
+        super().__init__()
+        # BN follows, so the conv bias would be normalized away; the final
+        # (Tanh) layer keeps its bias.
+        self.conv = ConvTranspose(cin, cout, kernel, stride, padding,
+                                  use_bias=final or not batchnorm, dtype=dtype,
+                                  device=device, generator=generator)
+        self.bn = (BatchNorm(cout, dtype=dtype, device=device,
+                             generator=generator)
+                   if (batchnorm and not final) else None)
+        self.act = Tanh() if final else ReLU()
+        self.final = final
+
+    def _fused_eval(self, x):
+        conv = self.conv
+        if self.bn is not None:
+            a, b = bn_affine(self.bn.scale, self.bn.bias, self.bn.mean,
+                             self.bn.var, self.bn.eps)
+        else:
+            a = torch.ones(conv.cout, device=x.device)
+            b = (conv.b.float() if conv.b is not None
+                 else torch.zeros(conv.cout, device=x.device))
+        return cuda_convt.convt_affine_act(
+            x.to(conv.dtype), conv.w.to(conv.dtype), a, b,
+            act="tanh" if self.final else "relu", out_dtype=conv.dtype)
+
+    def forward(self, x):
+        if not self.training and convs.resolve_impl(None) == "pallas":
+            return self._fused_eval(x)
+        x = self.conv(x)
+        if self.bn is not None:
+            x = self.bn(x)
+        return self.act(x)
+
+
+class GHead(nn.Module):
+    """z (N, nz) -> (N, s0, s0, cout) via matmul, then BN + ReLU."""
+
+    def __init__(self, nz, s0, cout, *, batchnorm=True, dtype=torch.bfloat16,
+                 device="cuda", generator=None):
+        super().__init__()
+        self.s0, self.cout = s0, cout
+        self.dense = Dense(nz, s0 * s0 * cout, use_bias=not batchnorm,
+                           dtype=dtype, device=device, generator=generator)
+        self.bn = (BatchNorm(cout, dtype=dtype, device=device,
+                             generator=generator) if batchnorm else None)
+
+    def forward(self, z):
+        x = self.dense(z).reshape(z.shape[0], self.s0, self.s0, self.cout)
+        if self.bn is not None:
+            x = self.bn(x)
+        return torch.relu(x)
