@@ -18,13 +18,24 @@ Phases, each of which fails the run (no exception is caught):
    v1 megakernel and the PyTorch-ops module path, plus determinism;
 4. serve it: ``BatchingEngine`` + ``make_server`` on 127.0.0.1, concurrent
    ``POST /sample`` (png and npy) and ``GET /healthz``; npy pixels must equal
-   ``Sampler.sample`` for the same seed.
+   ``Sampler.sample`` for the same seed;
+5. train: ``Trainer`` on full-width ``dcgan_celeba64`` (batch 128, the
+   synthetic dataset, ``fuse_stats="on"``, ``kernels="pallas"``): step 1's
+   losses against a ``fuse_stats="off"`` run from the same seed, then
+   timed steps of both, in turns, exactly 9 conv + BN-stats launches per
+   step (3 BN blocks x 3 train-mode D forwards), finite losses, and a
+   ``torch.profiler`` window: device time by kernel and the device's busy
+   share of a step;
+6. score a real and a generated batch with the trained D in eval mode under
+   ``set_default_impl("pallas")`` (one fused conv kernel per block) against
+   the "xla" impl.
 
-Launch counters are zeroed just before phase 3 and read just after phase 4:
-every kernel must have launched on the main path.  The last lines are the
-``kernels`` JSON, the card's name and power limit, and
-``{"ok": true, "device": {...}}``.  Exits non-zero without a CUDA device or
-without the ``tpugan_torch`` package beside this file.
+Phases 3-4, 5 and 6 are the three paths: each zeroes the launch counters
+just before it and reads them just after, and every kernel must have
+launched on its path.  The last lines are the ``kernels`` JSON, the card's
+name and power limit, and ``{"ok": true, "device": {...}}``.  Exits
+non-zero without a CUDA device or without the ``tpugan_torch`` package
+beside this file.
 """
 
 from __future__ import annotations
@@ -45,6 +56,7 @@ PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
 
 BATCH = 256
+TRAIN_BATCH = 128
 
 
 def log(msg: str) -> None:
@@ -79,8 +91,52 @@ def bound_ms(flops: float, nbytes: float) -> tuple[float, str]:
             "operations" if t_ops >= t_bytes else "bytes")
 
 
+def bf16_err(got, ref) -> tuple[float, bool]:
+    """(max |got - ref|, within the limit) for two bf16 results of the same
+    bf16 products whose fp32 sums differ only in order.  The sums differ by
+    ~1e-6 relative, which may flip a bf16 rounding: one ulp, at most 2^-7 of
+    the value.  Next to zero the sum order is the whole difference: 1e-3 of
+    the layer's largest value.  The limit follows the layer's own scale, so
+    a kernel that drops a part of the sum fails however small the layer's
+    values are."""
+    err = (got.float() - ref.float()).abs()
+    r = ref.float().abs()
+    ok = bool((err <= 2.0 ** -7 * r + 1e-3 * r.max()).all())
+    return err.max().item(), ok
+
+
+def fp32_err(got, ref) -> tuple[float, bool]:
+    """(max |got - ref|, within the limit) for two fp32 sums of the same
+    bf16 products in another order: ~sqrt(depth) * 2^-24 of the layer's
+    scale (depth <= 4096 here), so 1e-4 of its largest value."""
+    err = (got - ref).abs().max().item()
+    return err, err <= 1e-4 * ref.abs().max().item()
+
+
 def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def events_ms(fn) -> float:
+    """Device-clock span of one call of ``fn`` (which may launch many
+    kernels and run host code between them), by CUDA events."""
+    import torch
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end)
+
+
+def conv_work(x, w, out_bytes):
+    """(flops, bytes) of one Conv(4, 2, 1): the multiply-adds, x and w read
+    once, the output written once."""
+    n, h, wd, cin = x.shape
+    flops = 2 * n * (h // 2) * (wd // 2) * 16 * cin * w.shape[3]
+    return flops, nbytes(x, w) + out_bytes
 
 
 def gen_work(z, head, blocks, s0, c0, out_elems):
@@ -116,10 +172,23 @@ def main() -> int:
     import torch.nn.functional as F
 
     from tpugan_torch.configs import get_preset
-    from tpugan_torch.models.registry import build_generator
-    from tpugan_torch.ops import _build, convs, cuda_convt, cuda_gen, cuda_gen2
+    from tpugan_torch.data.datasets import load_dataset
+    from tpugan_torch.data.pipeline import make_input_pipeline
+    from tpugan_torch.models.registry import (build_discriminator,
+                                              build_generator)
+    from tpugan_torch.ops import (_build, convs, cuda_conv, cuda_conv_stats,
+                                  cuda_convt, cuda_gen, cuda_gen2)
+    from tpugan_torch.ops.fused import bn_affine
+    from tpugan_torch.sample import threefry
     from tpugan_torch.sample.sampler import Sampler, seeded_noise
     from tpugan_torch.serve.server import BatchingEngine, make_server
+    from tpugan_torch.train.trainer import Trainer
+
+    kernel_mods = (cuda_convt, cuda_gen, cuda_gen2, cuda_conv, cuda_conv_stats)
+
+    def zero_counts():
+        for mod in kernel_mods:
+            mod.launches = 0
 
     # the plain versions are the references: full fp32 matmuls and convs
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -183,11 +252,8 @@ def main() -> int:
             ref = cuda_convt.convt_affine_act_plain(x, wb, a, b, act=act,
                                                     out_dtype=bf)
             torch.cuda.synchronize()
-            err = (got.float() - ref.float()).abs()
-            # bf16 output: an fp32 sum-order ulp may flip the bf16 rounding,
-            # one bf16 ulp is 2^-8 relative, so 1e-2 * (1 + |ref|)
-            require(bool((err <= 1e-2 * (1 + ref.float().abs())).all()),
-                    f"convt layer {i}: max err {err.max().item()}")
+            err, ok = bf16_err(got, ref)
+            require(ok, f"convt layer {i}: max err {err}")
             wl = wb.permute(2, 3, 0, 1).contiguous()
             xl = x.permute(0, 3, 1, 2)  # NHWC storage = channels_last NCHW
 
@@ -208,7 +274,7 @@ def main() -> int:
                          lambda: cuda_convt.convt_affine_act_plain(
                              x, wb, a, b, act=act, out_dtype=bf), 5),
                      library_ms=time_ms(library, 20), bound_ms=bms,
-                     bound_by=by, max_abs_err=err.max().item())
+                     bound_by=by, max_abs_err=err)
             cases.append(c)
             log(f"[kernel] convt_affine_act {json.dumps(c)}")
             for k in ("ms", "plain_ms", "library_ms", "bound_ms"):
@@ -300,9 +366,158 @@ def main() -> int:
             ms=m["ms"], plain_ms=m["plain_ms"], bound_ms=m["bound_ms"],
             bound_by=m["bound_by"], library_ms=None, cases=[m] + extra)
 
-    # -- 3. main path, with the launch counters from zero ------------------
-    for mod in (cuda_convt, cuda_gen, cuda_gen2):
-        mod.launches = 0
+    # -- 2b. the discriminator's kernels at its four layer shapes ----------
+    # dcgan_celeba64 at full width (ndf=64), batch 128, on the synthetic
+    # images the train phase uses and a seeded D's activations
+    tcfg = get_preset("dcgan_celeba64").override({
+        "data.dataset": "synthetic", "data.synthetic_size": 10 * TRAIN_BATCH,
+        "train.ckpt_every": 0, "train.kernels": "pallas",
+        "train.fuse_stats": "on", "train.log_every": 1,
+        "train.sample_every": 10, "train.out_dir": str(ROOT / "chiprun_out"
+                                                       / "smoke_train")})
+    require(tcfg.model.ndf == 64 and tcfg.data.batch_size == TRAIN_BATCH
+            and tcfg.train.precision == "bf16" and tcfg.data.hflip,
+            "not the full-width dcgan_celeba64 train configuration")
+    train_data = load_dataset("synthetic", image_size=64, channels=3,
+                              synthetic_size=tcfg.data.synthetic_size,
+                              seed=tcfg.train.seed)
+    real = torch.from_numpy(train_data["images"][:TRAIN_BATCH]).to(dev)
+    real = (real.float() / 127.5 - 1.0).to(bf)
+    d0 = build_discriminator(tcfg.model, device=dev,
+                             generator=torch.Generator(device=dev)
+                             .manual_seed(1)).eval()
+    conv_cases, stats_cases = [], []
+    with torch.no_grad():
+        x = real
+        for i, blk in enumerate(d0.blocks):
+            wb = blk.conv.w.to(bf).contiguous()
+            cout = wb.shape[3]
+            if blk.bn is not None:
+                a, b = bn_affine(blk.bn.scale, blk.bn.bias, blk.bn.mean,
+                                 blk.bn.var, blk.bn.eps)
+            else:
+                a, b = torch.ones(cout, device=dev), blk.conv.b.float()
+            got = cuda_conv.conv_affine_act(x, wb, a, b, act="leaky_relu")
+            ref = cuda_conv.conv_affine_act_plain(x, wb, a, b,
+                                                  act="leaky_relu")
+            # the bare conv's fp32 output: the sums themselves, unrounded
+            got32 = cuda_conv.conv2d(x, wb)
+            ref32 = cuda_conv.conv421_plain(x, wb)
+            torch.cuda.synchronize()
+            err, ok = bf16_err(got, ref)
+            err32, ok32 = fp32_err(got32, ref32)
+            require(ok and ok32,
+                    f"conv layer {i}: max err {err} (bf16 out, largest value "
+                    f"{ref.float().abs().max().item()}), {err32} (fp32 out, "
+                    f"largest value {ref32.abs().max().item()})")
+            xl = x.permute(0, 3, 1, 2)  # NHWC storage = channels_last NCHW
+            wl = wb.permute(3, 2, 0, 1).contiguous(
+                memory_format=torch.channels_last)
+
+            def library(xl=xl, wl=wl, a=a, b=b):
+                y = F.conv2d(xl, wl, stride=2, padding=1)
+                return F.leaky_relu(y * a.view(1, -1, 1, 1)
+                                    + b.view(1, -1, 1, 1), 0.2)
+
+            flops, byt = conv_work(x, wb, nbytes(a, b, got))
+            bms, by = bound_ms(flops, byt)
+            n, h, wd, cin = x.shape
+            shape = f"{n}x{h}x{wd}x{cin}->{h // 2}x{wd // 2}x{cout}"
+            c = dict(shape=shape, ms=time_ms(
+                lambda: cuda_conv.conv_affine_act(x, wb, a, b), 20),
+                plain_ms=time_ms(lambda: cuda_conv.conv_affine_act_plain(
+                    x, wb, a, b), 5),
+                library_ms=time_ms(library, 20), bound_ms=bms, bound_by=by,
+                flops=flops, bytes=byt, max_abs_err=err,
+                scale=ref.float().abs().max().item(), fp32_max_abs_err=err32,
+                fp32_scale=ref32.abs().max().item())
+            conv_cases.append(c)
+            log(f"[kernel] conv_affine_act {json.dumps(c)}")
+            if blk.bn is not None:
+                y, mean, var = cuda_conv_stats.conv_stats(x, wb)
+                yr, mr, vr = cuda_conv_stats.conv_stats_plain(x, wb)
+                torch.cuda.synchronize()
+                ey, ok = bf16_err(y, yr)
+                require(ok, f"conv_stats layer {i}: y max err {ey}")
+                # statistics of the fp32 sums on both sides, summed in
+                # another order; var = E[y^2] - mean^2 loses a few bits
+                em = (mean - mr).abs()
+                ev = (var - vr).abs()
+                require(bool((em <= 1e-5 + 1e-4 * mr.abs()).all()),
+                        f"conv_stats layer {i}: mean max err {em.max()}")
+                require(bool((ev <= 1e-5 + 1e-3 * vr.abs()).all()),
+                        f"conv_stats layer {i}: var max err {ev.max()}")
+
+                def library_stats(xl=xl, wl=wl):
+                    y = F.conv2d(xl, wl, stride=2, padding=1)
+                    return y, torch.var_mean(y, dim=(0, 2, 3), correction=0)
+
+                flops, byt = conv_work(x, wb, nbytes(y, mean, var))
+                flops += 3 * y.numel()  # the sums of y and y^2
+                bms, by = bound_ms(flops, byt)
+                c = dict(shape=shape, ms=time_ms(
+                    lambda: cuda_conv_stats.conv_stats(x, wb), 20),
+                    plain_ms=time_ms(
+                        lambda: cuda_conv_stats.conv_stats_plain(x, wb), 5),
+                    library_ms=time_ms(library_stats, 20), bound_ms=bms,
+                    bound_by=by, flops=flops, bytes=byt,
+                    max_abs_err=max(ey, em.max().item(), ev.max().item()),
+                    scale=yr.float().abs().max().item())
+                stats_cases.append(c)
+                log(f"[kernel] conv_stats {json.dumps(c)}")
+            x = ref
+    for key, cases, line, src in (
+            ("conv_affine_act", conv_cases, "tpugan/ops/pallas_conv.py:86",
+             "cuda_conv.cu"),
+            ("conv_stats", stats_cases, "tpugan/ops/pallas_conv_stats.py:95",
+             "cuda_conv_stats.cu")):
+        tot = {k: sum(c[k] for c in cases)
+               for k in ("ms", "plain_ms", "library_ms", "bound_ms", "flops",
+                         "bytes")}
+        report[key] = dict(
+            name=key, route="cuda", source=f"tpugan_torch/csrc/{src}",
+            replaces=line, max_abs_err=max(c["max_abs_err"] for c in cases),
+            ms=tot["ms"], plain_ms=tot["plain_ms"], bound_ms=tot["bound_ms"],
+            bound_by=bound_ms(tot["flops"], tot["bytes"])[1],
+            library_ms=tot["library_ms"], cases=cases)
+
+    # conv_bn_stats's backward (PyTorch's conv gradients of the unfused VJP)
+    # against autograd through the plain composition, at the first BN
+    # layer's shape; the plain side takes the same bf16 values in fp32
+    with torch.no_grad():
+        c0 = d0.blocks[0].conv
+        xin = cuda_conv.conv_affine_act_plain(
+            real, c0.w.to(bf), torch.ones(c0.cout, device=dev), c0.b.float())
+        wb = d0.blocks[1].conv.w.to(bf)
+    cw = torch.randn(wb.shape[3], device=dev,
+                     generator=torch.Generator(device=dev).manual_seed(2))
+
+    def pulled(y, m, v):
+        return ((torch.tanh(y.float()) * cw).sum() + (m * cw ** 2).sum()
+                + torch.sqrt(v + 1.0).sum())
+
+    xk, wk = xin.clone().requires_grad_(), wb.clone().requires_grad_()
+    gx, gw = torch.autograd.grad(
+        pulled(*cuda_conv_stats.conv_bn_stats(xk, wk)), (xk, wk))
+    xr = xin.float().requires_grad_()
+    wr = wb.float().requires_grad_()
+    yr = cuda_conv.conv421_plain(xr, wr)
+    mr = yr.mean(dim=(0, 1, 2))
+    vr = torch.clamp((yr * yr).mean(dim=(0, 1, 2)) - mr * mr, min=0.0)
+    gxr, gwr = torch.autograd.grad(pulled(yr, mr, vr), (xr, wr))
+    torch.cuda.synchronize()
+    # the fused side rounds y, the cotangent and the gradients to bf16
+    # (2^-8 relative each): 3e-2 of each gradient's largest entry
+    for label, got, ref in (("x", gx, gxr), ("w", gw, gwr)):
+        e = (got.float() - ref).abs().max().item()
+        log(f"[kernel] conv_bn_stats backward d{label}: max err {e:.3e} "
+            f"(scale {ref.abs().max().item():.3e})")
+        require(e <= 3e-2 * ref.abs().max().item(),
+                f"conv_bn_stats backward d{label}: max err {e}")
+    del d0, xk, wk, xr, wr, gx, gw, gxr, gwr
+
+    # -- 3. main path (serving), with the launch counters from zero ---------
+    zero_counts()
     t0 = time.time()
     sampler = Sampler(cfg.override({"train.kernels": "pallas"}), g)
     imgs = sampler.sample(BATCH, seed=0)
@@ -388,16 +603,135 @@ def main() -> int:
 
     counts = {"convt_affine_act": cuda_convt.launches, "v1": cuda_gen.launches,
               "v2": cuda_gen2.launches}
-    log(f"[main] launches on the main path: {counts}")
+    log(f"[main] launches on the serving path: {counts}")
     for key, n in counts.items():
-        require(n > 0, f"{key} never launched on the main path")
+        require(n > 0, f"{key} never launched on the serving path")
         report[key]["launches"] = n
 
-    # -- 5. report ----------------------------------------------------------
+    # -- 5. train, with the launch counters from zero -----------------------
+    zero_counts()
+
+    def trainer(mode):
+        c = tcfg.override({"train.fuse_stats": mode, "train.out_dir":
+                           str(ROOT / "chiprun_out" / f"smoke_train_{mode}")})
+        return Trainer(c, data=train_data, device=dev)
+
+    t_off, t_on = trainer("off"), trainer("on")
+    m_off, m_on = t_off.train(1), t_on.train(1)
+    # step 1 from one seed: the same weights, batch and noise.  The fused
+    # side takes the BN statistics of the fp32 sums where the unfused side
+    # takes them of the bf16-rounded conv output, and the two convs round
+    # different elements of y to bf16 (2^-8 relative); through four blocks
+    # that moves a logit's mean by ~1e-3: 1e-2 absolute
+    for k in ("loss_d", "loss_g", "d_real", "d_fake"):
+        log(f"[train] step 1 {k}: fuse on {m_on[k]:.6f} off {m_off[k]:.6f}")
+        require(abs(m_on[k] - m_off[k]) <= 1e-2,
+                f"step 1 {k}: fuse on {m_on[k]} vs off {m_off[k]}")
+    warm = [t.train(3) for t in (t_on, t_off)]  # each ends with a grid
+    step_metrics = []
+
+    def run_steps(tr, n):
+        """ms per step of n train steps fed by the input pipeline, as the
+        Trainer runs them (logging and grids aside)."""
+        it = iter(make_input_pipeline(train_data, TRAIN_BATCH,
+                                      seed=tcfg.train.seed,
+                                      with_labels=False, device=dev,
+                                      start_step=tr.state.step))
+        batches = [next(it)]  # the pipeline's prefetch, as in steady state
+
+        def body():
+            for i in range(n):
+                tr.state, m = tr.step_fn(tr.state, batches[i])
+                step_metrics.append(m)
+                if i + 1 < n:
+                    batches.append(next(it))
+
+        ms = events_ms(body) / n
+        it.close()
+        return ms
+
+    times = {"on": [], "off": []}
+    for mode in ("off", "on", "on", "off"):  # in turns, on one card
+        times[mode].append(run_steps(t_on if mode == "on" else t_off, 10))
+    # where a fused step's time goes: device time by kernel, and the
+    # device's busy share of the step (the rest is the host's)
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        prof_ms = run_steps(t_on, 5)
+    # kernel rows only: an operator's row repeats its kernels' device time
+    kern = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in kern) / 1e3 / 5
+    log(f"[profile] fuse_stats=on: {prof_ms:.4f} ms/step under the profiler,"
+        f" device busy {busy:.4f} ms/step ({100 * busy / prof_ms:.1f}%), "
+        f"{sum(e.count for e in kern) / 5:.0f} kernels/step")
+    for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:12]:
+        log(f"[profile]   {e.self_device_time_total / 1e3 / 5:8.4f} ms/step "
+            f"{e.count / 5:6.1f}/step  {e.key[:90]}")
+    k_draw = threefry.split(t_on.state.rng, 8)[1]
+    t0 = time.perf_counter()
+    for _ in range(10):
+        threefry.normal(k_draw, (TRAIN_BATCH, tcfg.model.nz))
+    log(f"[profile] host: one {TRAIN_BATCH}x{tcfg.model.nz} threefry normal "
+        f"draw in numpy {(time.perf_counter() - t0) * 100:.3f} ms "
+        f"(two a step)")
+    last = t_on.train(t_on.state.step + 1)  # a logged step and a grid
+    for m in [m_on, m_off, last, *warm]:
+        require(all(np.isfinite(v) for v in m.values()),
+                f"non-finite logged metrics {m}")
+    require(bool(torch.isfinite(torch.stack(
+        [v for m in step_metrics for v in m.values()])).all()),
+        "non-finite step metrics")
+    train_counts = {"conv_stats": cuda_conv_stats.launches,
+                    "v2": cuda_gen2.launches}
+    log(f"[train] launches on the train path: {train_counts} over "
+        f"{t_on.state.step} fused steps")
+    require(cuda_conv_stats.launches == 9 * t_on.state.step,
+            f"{cuda_conv_stats.launches} conv_stats launches in "
+            f"{t_on.state.step} steps, not 9 a step")
+    require(cuda_gen2.launches > 0, "no sample grid on the train path")
+    report["conv_stats"]["launches"] = cuda_conv_stats.launches
+    for mode in ("on", "off"):
+        ms = sum(times[mode]) / len(times[mode])
+        log(f"[train] fuse_stats={mode}: {ms:.4f} ms/step "
+            f"({TRAIN_BATCH * 1e3 / ms:.1f} images/s; runs "
+            f"{', '.join(f'{t:.4f}' for t in times[mode])} ms/step)")
+
+    # -- 6. the trained D in eval mode, with the launch counters from zero ---
+    zero_counts()
+    d = t_on.d.eval()
+    fake = torch.from_numpy(Sampler(tcfg, t_on.g).sample(TRAIN_BATCH, seed=1)
+                            ).to(dev)
+    scores = {}
+    with torch.no_grad():
+        for impl in ("pallas", "xla"):
+            convs.set_default_impl(impl)
+            scores[impl] = [d(x).float() for x in (real, fake)]
+    convs.set_default_impl("xla")
+    log(f"[eval] conv launches: {cuda_conv.launches} for 2 D forwards")
+    require(cuda_conv.launches == 2 * len(d.blocks),
+            f"{cuda_conv.launches} conv launches, not one per block")
+    report["conv_affine_act"]["launches"] = cuda_conv.launches
+    for i, label in enumerate(("real", "generated")):
+        got, ref = scores["pallas"][i], scores["xla"][i]
+        err = (got - ref).abs()
+        log(f"[eval] D({label}) pallas vs xla: max {err.max().item():.3e}, "
+            f"mean logit {ref.mean().item():.4f}")
+        require(bool(torch.isfinite(got).all()), f"D({label}) non-finite")
+        # each block rounds to bf16 at other places (2^-8 relative): the
+        # fused kernel rounds once after BN and LeakyReLU, the "xla" impl
+        # after the conv, after BN and after the activation
+        require(bool((err <= 3e-2 * (1 + ref.abs())).all()),
+                f"D({label}): pallas and xla disagree by {err.max().item()}")
+
+    # -- 7. report ----------------------------------------------------------
     order = ("name", "route", "source", "replaces", "launches", "max_abs_err",
              "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "cases")
     kernels = [{k: report[key][k] for k in order}
-               for key in ("convt_affine_act", "v1", "v2")]
+               for key in ("convt_affine_act", "v1", "v2", "conv_affine_act",
+                           "conv_stats")]
     log(f"[done] total {time.time() - t_start:.1f}s")
     print(json.dumps({"kernels": kernels}))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

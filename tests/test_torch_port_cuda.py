@@ -7,8 +7,9 @@ the ``cuda`` fixture, never at import).  On a machine with an H100:
 
 Edge shapes the main path never gives (Cin not a multiple of the 32-deep
 staging step, Cout not a multiple of 16, ragged row tiles, the 7x7 base,
-batches that do not fill a block) are here; ``chip_smoke.py`` holds the
-kernels at the main path's own shapes.  This file imports no JAX.
+batches that do not fill a block, operands off 16-byte alignment) are
+here; ``chip_smoke.py`` holds the kernels at the main path's own shapes.
+This file imports no JAX.
 """
 
 import numpy as np
@@ -17,7 +18,8 @@ import torch
 
 from tpugan_torch.configs import get_preset
 from tpugan_torch.models.registry import build_generator
-from tpugan_torch.ops import cuda_convt, cuda_gen, cuda_gen2
+from tpugan_torch.ops import (cuda_conv, cuda_conv_stats, cuda_convt,
+                               cuda_gen, cuda_gen2)
 
 pytestmark = pytest.mark.cuda
 
@@ -113,3 +115,132 @@ def test_megakernels_match_plain(cuda, preset, overrides, n):
         one = cuda_gen2.generator_forward(g, z[:1], None if y is None
                                           else y[:1])
         assert torch.equal(one, got2[:1])
+
+
+# (n, h, w, cin, cout): Cin 3 (depth 48) and 33 (not a multiple of the
+# 32-deep step), Cout not a multiple of 16, rows not a multiple of the
+# 64-row tile (3 * 5 * 3 = 45, 1 * 2 * 1 = 2), batch 1, and the aligned,
+# 16-byte-staged case (Cin 64, Cout 128)
+CONV_SHAPES = [(3, 10, 6, 3, 7), (2, 8, 8, 33, 40), (1, 4, 2, 16, 3),
+               (1, 16, 16, 64, 128), (5, 6, 6, 32, 24)]
+
+
+def _conv_operands(cuda, n, h, w, cin, cout, seed):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    x = _rand((n, h, w, cin), gen, cuda).to(BF)
+    wt = _rand((4, 4, cin, cout), gen, cuda, 0.1).to(BF)
+    return gen, x, wt
+
+
+@pytest.mark.parametrize("act", ["leaky_relu", "relu", "tanh", "none"])
+@pytest.mark.parametrize("out_dtype", [torch.float32, BF])
+@pytest.mark.parametrize("n,h,w,cin,cout", CONV_SHAPES)
+def test_conv_kernel_matches_plain(cuda, n, h, w, cin, cout, act, out_dtype):
+    gen, x, wt = _conv_operands(cuda, n, h, w, cin, cout, n * 100 + cin)
+    a, b = _rand((cout,), gen, cuda), _rand((cout,), gen, cuda)
+    before = cuda_conv.launches
+    got = cuda_conv.conv_affine_act(x, wt, a, b, act=act, leak=0.1,
+                                    out_dtype=out_dtype)
+    assert cuda_conv.launches == before + 1
+    ref = cuda_conv.conv_affine_act_plain(x, wt, a, b, act=act, leak=0.1,
+                                          out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    assert got.dtype == out_dtype and got.shape == (n, h // 2, w // 2, cout)
+    # same bf16 products; fp32 sums in another order (~1e-6 relative), and
+    # for a bf16 output one flipped rounding (2^-8 relative)
+    tol = 1e-2 if out_dtype == BF else 1e-4
+    torch.testing.assert_close(got.float(), ref.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("n,h,w,cin,cout", CONV_SHAPES)
+def test_conv_stats_kernel_matches_plain(cuda, n, h, w, cin, cout):
+    _, x, wt = _conv_operands(cuda, n, h, w, cin, cout, n * 10 + cout)
+    x = (x.float() + 0.5).to(BF)  # an offset mean: E[y^2] - mean^2 cancels
+    before = cuda_conv_stats.launches
+    y, mean, var = cuda_conv_stats.conv_stats(x, wt)
+    assert cuda_conv_stats.launches == before + 1
+    yr, mr, vr = cuda_conv_stats.conv_stats_plain(x, wt)
+    torch.cuda.synchronize()
+    assert y.dtype == BF
+    # bf16 y: one flipped rounding (2^-8 relative)
+    torch.testing.assert_close(y.float(), yr.float(), rtol=1e-2, atol=1e-2)
+    # statistics from the fp32 sums on both sides: sum order only, and
+    # var = E[y^2] - mean^2 loses a few bits to cancellation
+    torch.testing.assert_close(mean, mr, rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(var, vr, rtol=1e-3, atol=1e-5)
+    assert bool((var >= 0).all())
+    # no atomics: the same bits on a second run
+    y2, mean2, var2 = cuda_conv_stats.conv_stats(x, wt)
+    assert torch.equal(y, y2) and torch.equal(mean, mean2)
+    assert torch.equal(var, var2)
+
+
+def test_conv_kernels_take_unaligned_operands(cuda):
+    """Operands 2 bytes off 16-byte alignment take the scalar staging."""
+    n, h, w, cin, cout = 2, 8, 8, 64, 32
+    _, x, wt = _conv_operands(cuda, n, h, w, cin, cout, 5)
+    xs = torch.empty(x.numel() + 1, dtype=BF, device=cuda)[1:].view(x.shape)
+    ws = torch.empty(wt.numel() + 1, dtype=BF, device=cuda)[1:].view(wt.shape)
+    xs.copy_(x)
+    ws.copy_(wt)
+    assert xs.data_ptr() % 16 and ws.data_ptr() % 16
+    one = torch.ones(cout, device=cuda)
+    zero = torch.zeros(cout, device=cuda)
+    got = cuda_conv.conv_affine_act(xs, ws, one, zero, act="none",
+                                    out_dtype=torch.float32)
+    ref = cuda_conv.conv_affine_act(x, wt, one, zero, act="none",
+                                    out_dtype=torch.float32)
+    y, _, _ = cuda_conv_stats.conv_stats(xs, ws)
+    y_ref, _, _ = cuda_conv_stats.conv_stats(x, wt)
+    torch.cuda.synchronize()
+    # the same products summed in the same order: the same bits
+    assert torch.equal(got, ref) and torch.equal(y, y_ref)
+
+
+def test_conv_bn_stats_backward_matches_autograd_of_plain(cuda):
+    """The fused op's backward (PyTorch conv gradients of the unfused VJP)
+    against autograd through the plain composition, in fp32."""
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    x32 = _rand((4, 16, 16, 32), gen, cuda)
+    w32 = _rand((4, 4, 32, 48), gen, cuda, 0.05)
+    cw = _rand((48,), gen, cuda)
+
+    def loss(y, m, v):
+        return ((torch.tanh(y.float()) * cw).sum() + (m * cw ** 2).sum()
+                + torch.sqrt(v + 1.0).sum())
+
+    xr, wr = x32.clone().requires_grad_(), w32.clone().requires_grad_()
+    y = cuda_conv.conv421_plain(xr, wr)
+    m = y.mean(dim=(0, 1, 2))
+    v = torch.clamp((y * y).mean(dim=(0, 1, 2)) - m * m, min=0.0)
+    gx_ref, gw_ref = torch.autograd.grad(loss(y, m, v), (xr, wr))
+    # the kernel takes bf16: bf16 operands, gradients in bf16 as JAX's VJP
+    xb = x32.to(BF).requires_grad_()
+    wb = w32.to(BF).requires_grad_()
+    before = cuda_conv_stats.launches
+    gx, gw = torch.autograd.grad(loss(*cuda_conv_stats.conv_bn_stats(xb, wb)),
+                                 (xb, wb))
+    assert cuda_conv_stats.launches == before + 1
+    torch.cuda.synchronize()
+    assert gx.dtype == BF and gw.dtype == BF
+    # bf16 operands (2^-8 relative) and a bf16 cotangent and gradient:
+    # a few percent of each gradient's scale
+    for got, ref in ((gx, gx_ref), (gw, gw_ref)):
+        err = (got.float() - ref).abs().max().item()
+        assert err <= 3e-2 * ref.abs().max().item(), err
+
+
+def test_conv_kernels_refuse_what_they_do_not_take(cuda):
+    x = torch.zeros(2, 8, 8, 8, device=cuda)
+    w = torch.zeros(4, 4, 8, 8, device=cuda)
+    one, zero = torch.ones(8, device=cuda), torch.zeros(8, device=cuda)
+    with pytest.raises(ValueError, match="bf16"):
+        cuda_conv.conv_affine_act(x, w, one, zero)
+    with pytest.raises(ValueError, match="bf16"):
+        cuda_conv_stats.conv_stats(x, w)
+    with pytest.raises(ValueError, match="out_dtype"):
+        cuda_conv.conv_affine_act(x.to(BF), w.to(BF), one, zero,
+                                  out_dtype=torch.float16)
+    with pytest.raises(RuntimeError, match="forward-only"):
+        cuda_conv.conv_affine_act(x.to(BF), w.to(BF).requires_grad_(), one,
+                                  zero)

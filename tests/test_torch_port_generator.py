@@ -14,7 +14,7 @@ from _torch_port_common import to_numpy, twin_generators
 from tpugan.configs import Config as JaxConfig
 from tpugan.configs import get_preset, list_presets
 from tpugan.models import build_models
-from tpugan_torch.ckpt.from_jax import flatten, load_jax_generator
+from tpugan_torch.ckpt.from_jax import flatten, load_jax_module
 from tpugan_torch.configs import Config
 from tpugan_torch.configs import list_presets as port_list_presets
 from tpugan_torch.models.registry import build_discriminator, build_generator
@@ -101,14 +101,14 @@ def test_weight_map_rejects_missing_extra_and_misshapen(rng):
     p, s = to_numpy(params), to_numpy(state)
     bad = {**p, "extra": {"w": np.zeros(3, np.float32)}}
     with pytest.raises(KeyError, match="extra"):
-        load_jax_generator(tg, bad, s)
+        load_jax_module(tg, bad, s)
     missing = {k: v for k, v in p.items() if k != "final"}
     with pytest.raises(KeyError, match="missing"):
-        load_jax_generator(tg, missing, s)
+        load_jax_module(tg, missing, s)
     p["final"] = {"conv": {"w": np.zeros((4, 4, 8, 2), np.float32),
                            "b": p["final"]["conv"]["b"]}}
     with pytest.raises(ValueError, match="shape"):
-        load_jax_generator(tg, p, s)
+        load_jax_module(tg, p, s)
 
 
 def test_configs_round_trip_between_packages():
@@ -127,7 +127,7 @@ def test_cuda_default_raises_without_a_card():
         pytest.skip("a CUDA device is present: the default device works")
     with pytest.raises(RuntimeError, match="cuda"):
         build_generator(pcfg.model)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(RuntimeError, match="cuda"):
         build_discriminator(pcfg.model)
 
 

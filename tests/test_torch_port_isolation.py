@@ -35,7 +35,9 @@ def test_package_imports_without_jax():
             "sys.modules['tpugan'] = None; import tpugan_torch; "
             "import tpugan_torch.serve.server, tpugan_torch.sample.sampler, "
             "tpugan_torch.ops.cuda_gen2, tpugan_torch.ckpt.from_jax, "
-            "tpugan_torch.models.registry; "
+            "tpugan_torch.models.registry, tpugan_torch.train.trainer, "
+            "tpugan_torch.ops.cuda_conv_stats, "
+            "tpugan_torch.losses.adversarial; "
             "assert 'jax' not in [m.split('.')[0] for m in sys.modules "
             "if sys.modules[m] is not None]")
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,

@@ -76,6 +76,55 @@ __device__ __forceinline__ void store_val(float* p, float v, bool round_bf16) {
   *p = round_bf16 ? __bfloat162float(__float2bfloat16(v)) : v;
 }
 
+using AccFrag = nvcuda::wmma::fragment<nvcuda::wmma::accumulator, 16, 16, 16, float>;
+
+// One kBK-deep step of a tile: warp (wm, wn) multiplies its FM x FN 16x16
+// fragments of the staged A (row-major, stride LDA) and B (kBK rows, stride
+// LDB) into acc.  Shared by the ConvT tile below and conv_tile.cuh.
+template <int FM, int FN, int LDA, int LDB>
+__device__ __forceinline__ void mma_step(AccFrag (&acc)[FM][FN], const bf16* As,
+                                         const bf16* Bs, int wm, int wn) {
+  using namespace nvcuda;
+#pragma unroll
+  for (int kk = 0; kk < kBK; kk += 16) {
+    wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa[FM];
+    wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb[FN];
+#pragma unroll
+    for (int fm = 0; fm < FM; ++fm)
+      wmma::load_matrix_sync(fa[fm], As + (wm * FM + fm) * 16 * LDA + kk, LDA);
+#pragma unroll
+    for (int fn = 0; fn < FN; ++fn)
+      wmma::load_matrix_sync(fb[fn], Bs + kk * LDB + (wn * FN + fn) * 16, LDB);
+#pragma unroll
+    for (int fm = 0; fm < FM; ++fm)
+#pragma unroll
+      for (int fn = 0; fn < FN; ++fn)
+        wmma::mma_sync(acc[fm][fn], fa[fm], fb[fn], acc[fm][fn]);
+  }
+}
+
+// Zero a warp's accumulators.
+template <int FM, int FN>
+__device__ __forceinline__ void zero_acc(AccFrag (&acc)[FM][FN]) {
+#pragma unroll
+  for (int fm = 0; fm < FM; ++fm)
+#pragma unroll
+    for (int fn = 0; fn < FN; ++fn) nvcuda::wmma::fill_fragment(acc[fm][fn], 0.f);
+}
+
+// Store warp (wm, wn)'s fp32 sums into the tile Cs (row-major, stride LDC).
+template <int FM, int FN, int LDC>
+__device__ __forceinline__ void store_acc(float* Cs, const AccFrag (&acc)[FM][FN],
+                                          int wm, int wn) {
+#pragma unroll
+  for (int fm = 0; fm < FM; ++fm)
+#pragma unroll
+    for (int fn = 0; fn < FN; ++fn)
+      nvcuda::wmma::store_matrix_sync(
+          Cs + (wm * FM + fm) * 16 * LDC + (wn * FN + fn) * 16, acc[fm][fn], LDC,
+          nvcuda::wmma::mem_row_major);
+}
+
 // Shared memory one tile needs, for the largest configuration below.
 constexpr int kSmemBytes = 32768;
 
@@ -100,7 +149,6 @@ template <int WM, int WN, int FM, int FN, typename OutT>
 __device__ void convt_tile(const ConvT& L, int di, int dj, int m0, int n0,
                            int nimg, Layout in, int in_img0, Layout out,
                            int out_img0, OutT* y, unsigned char* smem) {
-  using namespace nvcuda;
   constexpr int BM = WM * FM * 16;
   constexpr int BN = WN * FN * 16;
   constexpr int LDA = kBK + 8;   // bf16 elements; multiple of 8
@@ -142,11 +190,8 @@ __device__ void convt_tile(const ConvT& L, int di, int dj, int m0, int n0,
   }
   __syncthreads();
 
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[FM][FN];
-#pragma unroll
-  for (int fm = 0; fm < FM; ++fm)
-#pragma unroll
-    for (int fn = 0; fn < FN; ++fn) wmma::fill_fragment(acc[fm][fn], 0.f);
+  AccFrag acc[FM][FN];
+  zero_acc(acc);
 
   for (int t = 0; t < 4; ++t) {
     int kh, oh, kw, ow;
@@ -167,32 +212,12 @@ __device__ void convt_tile(const ConvT& L, int di, int dj, int m0, int n0,
                               : __float2bfloat16(0.f);
       }
       __syncthreads();
-#pragma unroll
-      for (int kk = 0; kk < kBK; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa[FM];
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb[FN];
-#pragma unroll
-        for (int fm = 0; fm < FM; ++fm)
-          wmma::load_matrix_sync(fa[fm], As + (wm * FM + fm) * 16 * LDA + kk, LDA);
-#pragma unroll
-        for (int fn = 0; fn < FN; ++fn)
-          wmma::load_matrix_sync(fb[fn], Bs + kk * LDB + (wn * FN + fn) * 16, LDB);
-#pragma unroll
-        for (int fm = 0; fm < FM; ++fm)
-#pragma unroll
-          for (int fn = 0; fn < FN; ++fn)
-            wmma::mma_sync(acc[fm][fn], fa[fm], fb[fn], acc[fm][fn]);
-      }
+      mma_step<FM, FN, LDA, LDB>(acc, As, Bs, wm, wn);
       __syncthreads();
     }
   }
 
-#pragma unroll
-  for (int fm = 0; fm < FM; ++fm)
-#pragma unroll
-    for (int fn = 0; fn < FN; ++fn)
-      wmma::store_matrix_sync(Cs + (wm * FM + fm) * 16 * LDC + (wn * FN + fn) * 16,
-                              acc[fm][fn], LDC, wmma::mem_row_major);
+  store_acc<FM, FN, LDC>(Cs, acc, wm, wn);
   __syncthreads();
 
   for (int e = tid; e < BM * BN; e += kThreads) {

@@ -1,11 +1,13 @@
-"""DCGAN generator, sizes 28/32/64/128/256 (port of the generator half of
+"""DCGAN generator and discriminator, sizes 28/32/64/128/256 (port of
 ``tpugan/models/dcgan.py``).
 
-A Dense z -> s0 x s0 head with BN and ReLU, then ConvTranspose(4, 2, 1) +
-BN + ReLU blocks, then ConvT + Tanh.  Channels halve per doubling of the
-resolution; the 28 px family has a 7 x 7 base, the others 4 x 4.
+The generator: a Dense z -> s0 x s0 head with BN and ReLU, then
+ConvTranspose(4, 2, 1) + BN + ReLU blocks, then ConvT + Tanh.  Channels halve
+per doubling of the resolution; the 28 px family has a 7 x 7 base, the
+others 4 x 4.  The discriminator mirrors it: Conv(4, 2, 1) + [BN] + LeakyReLU
+blocks (no BN in the first), then a Dense tail on the flattened map.
 Submodules are named as the JAX parameter tree (``head``, ``block{i}``,
-``final``), so ``state_dict`` keys are the JAX keys joined by dots.
+``final``, ``tail``), so ``state_dict`` keys are the JAX keys joined by dots.
 """
 
 from __future__ import annotations
@@ -15,7 +17,7 @@ from typing import List, Tuple
 import torch
 from torch import nn
 
-from tpugan_torch.models.blocks import GBlock, GHead
+from tpugan_torch.models.blocks import DBlock, DTail, GBlock, GHead
 
 
 def _g_schedule(image_size: int, ngf: int) -> Tuple[int, List[int]]:
@@ -60,3 +62,51 @@ class Generator(nn.Module):
         for blk in self.blocks:
             x = blk(x)
         return self.final(x)
+
+
+def _d_schedule(image_size: int, ndf: int) -> Tuple[int, List[int]]:
+    """Return (s0, [channels per block, finest -> coarsest])."""
+    if image_size == 28:
+        return 7, [ndf, ndf * 2]
+    if image_size == 32:
+        return 4, [ndf, ndf * 2, ndf * 4]
+    if image_size == 64:
+        return 4, [ndf, ndf * 2, ndf * 4, ndf * 8]
+    if image_size == 128:
+        return 4, [ndf, ndf * 2, ndf * 4, ndf * 8, ndf * 16]
+    if image_size == 256:
+        return 4, [ndf, ndf * 2, ndf * 4, ndf * 8, ndf * 16, ndf * 16]
+    raise ValueError(f"unsupported image_size {image_size}")
+
+
+class Discriminator(nn.Module):
+    """image (N, S, S, C) -> logit (N,), in the compute dtype."""
+
+    def __init__(self, image_size: int, channels: int, ndf: int,
+                 *, batchnorm: bool = True, spectral_norm: bool = False,
+                 leak: float = 0.2, dtype=torch.bfloat16, device="cuda",
+                 generator=None):
+        super().__init__()
+        self.image_size = image_size
+        s0, chans = _d_schedule(image_size, ndf)
+        kw = dict(spectral_norm=spectral_norm, leak=leak, dtype=dtype,
+                  device=device, generator=generator)
+        cin = channels
+        self.n_blocks = len(chans)
+        for i, cout in enumerate(chans):
+            # the first block has no BN (the DCGAN idiom)
+            self.add_module(f"block{i}",
+                            DBlock(cin, cout, batchnorm=batchnorm and i > 0,
+                                   **kw))
+            cin = cout
+        self.tail = DTail(s0, chans[-1], dtype=dtype, device=device,
+                          generator=generator)
+
+    @property
+    def blocks(self) -> List[DBlock]:
+        return [getattr(self, f"block{i}") for i in range(self.n_blocks)]
+
+    def forward(self, x):
+        for blk in self.blocks:
+            x = blk(x)
+        return self.tail(x)

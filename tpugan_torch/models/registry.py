@@ -1,7 +1,7 @@
 """Model construction from config (port of ``tpugan/models/registry.py``).
 
-Only the generator is ported so far; the discriminator comes with the
-training slice (ROADMAP.md, Queue A: "Discriminator models").
+The conditional discriminator is not ported yet (ROADMAP.md, Queue A:
+"Discriminator models"): ``build_discriminator`` raises for ``cdcgan``.
 """
 
 from __future__ import annotations
@@ -10,7 +10,7 @@ import torch
 
 from tpugan_torch.configs import ModelConfig
 from tpugan_torch.models.cdcgan import CondGenerator
-from tpugan_torch.models.dcgan import Generator
+from tpugan_torch.models.dcgan import Discriminator, Generator
 
 
 def compute_dtype(precision: str) -> torch.dtype:
@@ -37,7 +37,28 @@ def build_generator(cfg: ModelConfig, precision: str = "bf16", *,
     raise ValueError(f"unknown arch {cfg.arch!r}")
 
 
-def build_discriminator(cfg: ModelConfig, precision: str = "bf16", **_):
-    raise NotImplementedError(
-        "the discriminator is not ported yet (ROADMAP.md, Queue A: "
-        "'Discriminator models')")
+def build_discriminator(cfg: ModelConfig, precision: str = "bf16", *,
+                        device="cuda",
+                        generator: torch.Generator | None = None):
+    """The discriminator for a ModelConfig, weights drawn from
+    ``generator``."""
+    if cfg.arch == "dcgan":
+        return Discriminator(cfg.image_size, cfg.channels, cfg.ndf,
+                             batchnorm=cfg.d_batchnorm,
+                             spectral_norm=cfg.d_spectral_norm, leak=cfg.leak,
+                             dtype=compute_dtype(precision), device=device,
+                             generator=generator)
+    if cfg.arch == "cdcgan":
+        raise NotImplementedError(
+            "the conditional discriminator is not ported yet (ROADMAP.md, "
+            "Queue A: 'Discriminator models', CondDiscriminator)")
+    raise ValueError(f"unknown arch {cfg.arch!r}")
+
+
+def build_models(cfg: ModelConfig, precision: str = "bf16", *,
+                 device="cuda", generator: torch.Generator | None = None):
+    """(generator, discriminator) for a ModelConfig, G's weights drawn from
+    ``generator`` first, then D's."""
+    kw = dict(device=device, generator=generator)
+    return (build_generator(cfg, precision, **kw),
+            build_discriminator(cfg, precision, **kw))

@@ -1,11 +1,11 @@
-"""Core layers: transpose conv / dense / batchnorm / embedding (port of
-``tpugan/nn/layers.py``).
+"""Core layers: conv / transpose conv / dense / batchnorm / embedding (port
+of ``tpugan/nn/layers.py``).
 
 Layout and precision follow the JAX package so that weights carry across by
 name alone:
 
-- activations are NHWC; ConvT weights are HWIO ``(k, k, Cin, Cout)``,
-  unflipped; Dense weights are ``(din, dout)``;
+- activations are NHWC; Conv and ConvT weights are HWIO
+  ``(k, k, Cin, Cout)``, unflipped; Dense weights are ``(din, dout)``;
 - parameters live in fp32 and each layer casts them to its compute dtype
   (bf16 under ``precision="bf16"``); matmuls sum in fp32;
 - BatchNorm statistics are computed and stored in fp32 whatever the compute
@@ -18,6 +18,7 @@ running statistics as buffers updated in place (``mean``, ``var``).
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from tpugan_torch.ops import convs
@@ -34,6 +35,29 @@ def winit(shape, *, generator: torch.Generator | None = None,
     gdev = generator.device if generator is not None else "cpu"
     w = torch.randn(shape, generator=generator, device=gdev) * std
     return w.to(resolve_device(device))
+
+
+class Conv(nn.Module):
+    """Strided 2D convolution, NHWC activations, HWIO weight ``w``."""
+
+    def __init__(self, cin: int, cout: int, kernel: int = 4, stride: int = 2,
+                 padding: int = 1, use_bias: bool = True,
+                 dtype=torch.bfloat16, *, device="cuda", generator=None):
+        super().__init__()
+        self.cin, self.cout = cin, cout
+        self.kernel, self.stride, self.padding = kernel, stride, padding
+        self.dtype = dtype
+        self.w = nn.Parameter(winit((kernel, kernel, cin, cout),
+                                    generator=generator, device=device))
+        self.b = (nn.Parameter(torch.zeros(cout, device=resolve_device(device)))
+                  if use_bias else None)
+
+    def forward(self, x):
+        y = convs.conv2d(x.to(self.dtype), self.w.to(self.dtype),
+                         stride=self.stride, padding=self.padding)
+        if self.b is not None:
+            y = y + self.b
+        return y.to(self.dtype)
 
 
 class ConvTranspose(nn.Module):
@@ -146,6 +170,15 @@ class Embedding(nn.Module):
 class ReLU(nn.Module):
     def forward(self, x):
         return torch.relu(x)
+
+
+class LeakyReLU(nn.Module):
+    def __init__(self, slope: float = 0.2):
+        super().__init__()
+        self.slope = slope
+
+    def forward(self, x):
+        return F.leaky_relu(x, self.slope)
 
 
 class Tanh(nn.Module):
