@@ -10,7 +10,11 @@ Phases, each of which fails the run (no exception is caught):
 2. hold each kernel against its plain PyTorch version on the card at the
    main path's shapes, in bf16, with the tolerance stated, and time kernel,
    plain version and (where one exists) one PyTorch library call of the
-   same function;
+   same function: ``ms``/``library_ms`` by CUDA events around eager calls,
+   host launch overhead included, and ``device_ms``/``library_device_ms``
+   the same calls replayed as a CUDA graph, the device's time alone; each
+   layer's rate and share of its bound on both measures, and the conv +
+   BN-statistics kernel's depth split against its alternatives;
 3. drive the main path at full width (``dcgan_celeba64``: nz=100, ngf=64,
    random weights from a seeded ``torch.Generator``, BN running stats from a
    few train-mode forwards): ``Sampler.sample(256)`` under
@@ -69,8 +73,9 @@ def require(cond: bool, msg: str) -> None:
 
 
 def time_ms(fn, iters: int) -> float:
-    """Device time per call, by CUDA events over ``iters`` calls after one
-    warm-up call."""
+    """Time per call by CUDA events around ``iters`` eager calls after one
+    warm-up call: the device's time, or the host's where launching a call
+    takes longer than running it."""
     import torch
 
     fn()
@@ -83,6 +88,45 @@ def time_ms(fn, iters: int) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, iters: int, reps: int = 5) -> float:
+    """Device time per call: ``iters`` calls captured in one CUDA graph,
+    replayed ``reps`` times between CUDA events.  Unlike ``time_ms`` it
+    leaves out the host's launch overhead (the wrapper's Python, the
+    tensor-map encoding, the launch calls), which can outlast a kernel of
+    tens of microseconds and is then what ``time_ms`` measures."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g, capture_error_mode="relaxed"):
+        for _ in range(iters):
+            fn()
+    g.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        g.replay()
+    end.record()
+    end.synchronize()
+    del g
+    return start.elapsed_time(end) / (reps * iters)
+
+
+def timed(fn, library=None, iters: int = 20) -> dict:
+    """A kernel's time by events around eager calls (``ms``, ``time_ms``:
+    host launch overhead included, the measure of the ``kernels`` line) and
+    its device time alone (``device_ms``, ``graph_ms``), and the same two
+    for the library call where there is one."""
+    out = dict(ms=time_ms(fn, iters), device_ms=graph_ms(fn, iters))
+    if library is not None:
+        out.update(library_ms=time_ms(library, iters),
+                   library_device_ms=graph_ms(library, iters))
+    return out
 
 
 def bound_ms(flops: float, nbytes: float) -> tuple[float, str]:
@@ -115,6 +159,20 @@ def fp32_err(got, ref) -> tuple[float, bool]:
 
 def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def rate(case: dict) -> str:
+    """A layer's achieved rate on the quantity that bounds it, and its share
+    of the bound (bound_ms / ms), eagerly and on the device alone."""
+    out = []
+    for key in ("ms", "device_ms"):
+        t = case[key]
+        if case["bound_by"] == "bytes":
+            r = f"{case['bytes'] / t / 1e6:.1f} GB/s"
+        else:
+            r = f"{case['flops'] / t / 1e9:.1f} TFLOP/s"
+        out.append(f"{key} {r}, {100 * case['bound_ms'] / t:.1f}% of bound")
+    return "; ".join(out)
 
 
 def events_ms(fn) -> float:
@@ -202,10 +260,13 @@ def main() -> int:
     t0 = time.time()
     outputs = _build.build_all()
     log(f"[build] {len(outputs)} kernel libraries in {time.time() - t0:.1f}s")
-    for name, out in outputs.items():
+    for name, (secs, out) in outputs.items():
+        log(f"[build] {name}: nvcc {secs:.1f}s")
         for line in out.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"[build] {name}: {line.strip()}")
+            if "entry function" in line:  # the kernel's mangled name
+                log(f"[build] {name}: {line.split(chr(39))[1][:110]}")
+            elif "registers" in line or "spill" in line:
+                log(f"[build] {name}:   {line.strip()}")
     for name in _build.SOURCES:
         _build.load(name)
 
@@ -242,7 +303,8 @@ def main() -> int:
     with torch.no_grad():
         # (a) per-layer kernel at the four layer shapes, on real activations
         x = cuda_gen.head_plain(z, head, s0, c0).to(bf)
-        cases, tot = [], dict(ms=0.0, plain_ms=0.0, library_ms=0.0,
+        cases, tot = [], dict(ms=0.0, device_ms=0.0, plain_ms=0.0,
+                              library_ms=0.0, library_device_ms=0.0,
                               bound_ms=0.0, flops=0.0, bytes=0.0, err=0.0)
         for i, (w, a, b) in enumerate(blocks):
             act = "tanh" if i == len(blocks) - 1 else "relu"
@@ -268,16 +330,18 @@ def main() -> int:
             byt = nbytes(x, wb, a, b) + n * 4 * h * wd * cout * 2
             bms, by = bound_ms(flops, byt)
             c = dict(shape=f"{n}x{h}x{wd}x{cin}->{2 * h}x{2 * wd}x{cout}",
-                     ms=time_ms(lambda: cuda_convt.convt_affine_act(
-                         x, wb, a, b, act=act, out_dtype=bf), 20),
+                     **timed(lambda: cuda_convt.convt_affine_act(
+                         x, wb, a, b, act=act, out_dtype=bf), library),
                      plain_ms=time_ms(
                          lambda: cuda_convt.convt_affine_act_plain(
                              x, wb, a, b, act=act, out_dtype=bf), 5),
-                     library_ms=time_ms(library, 20), bound_ms=bms,
-                     bound_by=by, max_abs_err=err)
+                     bound_ms=bms,
+                     bound_by=by, flops=flops, bytes=byt, max_abs_err=err)
             cases.append(c)
             log(f"[kernel] convt_affine_act {json.dumps(c)}")
-            for k in ("ms", "plain_ms", "library_ms", "bound_ms"):
+            log(f"[kernel] convt_affine_act {c['shape']}: {rate(c)}")
+            for k in ("ms", "device_ms", "plain_ms", "library_ms",
+                      "library_device_ms", "bound_ms"):
                 tot[k] += c[k]
             tot["flops"] += flops
             tot["bytes"] += byt
@@ -287,10 +351,11 @@ def main() -> int:
             name="convt_affine_act", route="cuda",
             source="tpugan_torch/csrc/cuda_convt.cu",
             replaces="tpugan/ops/pallas_convt.py:108",
-            max_abs_err=tot["err"], ms=tot["ms"], plain_ms=tot["plain_ms"],
-            bound_ms=tot["bound_ms"],
+            max_abs_err=tot["err"], ms=tot["ms"], device_ms=tot["device_ms"],
+            plain_ms=tot["plain_ms"], bound_ms=tot["bound_ms"],
             bound_by=bound_ms(tot["flops"], tot["bytes"])[1],
-            library_ms=tot["library_ms"], cases=cases)
+            library_ms=tot["library_ms"],
+            library_device_ms=tot["library_device_ms"], cases=cases)
 
         # (b) megakernels against their plain versions
         def check_gen(label, module, gz, y, tol, versions):
@@ -327,8 +392,9 @@ def main() -> int:
                         f"{key} {label}: max err {err.max().item()} > {tol}")
                 flops, byt = gen_work(zz, hd, bl, ss, cc, got.numel())
                 bms, by = bound_ms(flops, byt)
-                c = dict(case=label, ms=time_ms(run, 10),
+                c = dict(case=label, **timed(run, iters=10),
                          plain_ms=time_ms(plain, 3), library_ms=None,
+                         library_device_ms=None,
                          bound_ms=bms, bound_by=by,
                          max_abs_err=err.max().item(),
                          mean_abs_err=err.mean().item())
@@ -363,8 +429,9 @@ def main() -> int:
             route="cuda", source=f"tpugan_torch/csrc/{src}", replaces=line,
             max_abs_err=max([m["max_abs_err"]]
                             + [c["max_abs_err"] for c in extra]),
-            ms=m["ms"], plain_ms=m["plain_ms"], bound_ms=m["bound_ms"],
-            bound_by=m["bound_by"], library_ms=None, cases=[m] + extra)
+            ms=m["ms"], device_ms=m["device_ms"], plain_ms=m["plain_ms"],
+            bound_ms=m["bound_ms"], bound_by=m["bound_by"], library_ms=None,
+            library_device_ms=None, cases=[m] + extra)
 
     # -- 2b. the discriminator's kernels at its four layer shapes ----------
     # dcgan_celeba64 at full width (ndf=64), batch 128, on the synthetic
@@ -423,16 +490,17 @@ def main() -> int:
             bms, by = bound_ms(flops, byt)
             n, h, wd, cin = x.shape
             shape = f"{n}x{h}x{wd}x{cin}->{h // 2}x{wd // 2}x{cout}"
-            c = dict(shape=shape, ms=time_ms(
-                lambda: cuda_conv.conv_affine_act(x, wb, a, b), 20),
+            c = dict(shape=shape, **timed(
+                lambda: cuda_conv.conv_affine_act(x, wb, a, b), library),
                 plain_ms=time_ms(lambda: cuda_conv.conv_affine_act_plain(
                     x, wb, a, b), 5),
-                library_ms=time_ms(library, 20), bound_ms=bms, bound_by=by,
+                bound_ms=bms, bound_by=by,
                 flops=flops, bytes=byt, max_abs_err=err,
                 scale=ref.float().abs().max().item(), fp32_max_abs_err=err32,
                 fp32_scale=ref32.abs().max().item())
             conv_cases.append(c)
             log(f"[kernel] conv_affine_act {json.dumps(c)}")
+            log(f"[kernel] conv_affine_act {shape}: {rate(c)}")
             if blk.bn is not None:
                 y, mean, var = cuda_conv_stats.conv_stats(x, wb)
                 yr, mr, vr = cuda_conv_stats.conv_stats_plain(x, wb)
@@ -455,16 +523,26 @@ def main() -> int:
                 flops, byt = conv_work(x, wb, nbytes(y, mean, var))
                 flops += 3 * y.numel()  # the sums of y and y^2
                 bms, by = bound_ms(flops, byt)
-                c = dict(shape=shape, ms=time_ms(
-                    lambda: cuda_conv_stats.conv_stats(x, wb), 20),
+                c = dict(shape=shape, **timed(
+                    lambda: cuda_conv_stats.conv_stats(x, wb), library_stats),
                     plain_ms=time_ms(
                         lambda: cuda_conv_stats.conv_stats_plain(x, wb), 5),
-                    library_ms=time_ms(library_stats, 20), bound_ms=bms,
+                    bound_ms=bms,
                     bound_by=by, flops=flops, bytes=byt,
                     max_abs_err=max(ey, em.max().item(), ev.max().item()),
                     scale=yr.float().abs().max().item())
+                # the depth split against its alternatives (the plan's
+                # choice is the one the main path runs)
+                steps = 16 * -(-cin // 64)
+                c["split_ms"] = {
+                    s: graph_ms(lambda s=s: cuda_conv_stats._launch(
+                        x, wb, splits=s), 20)
+                    for s in (1, 2, 4) if steps % s == 0 and steps >= 8 * s}
+                c["splits"] = cuda_conv_stats.plan(x, cout)[1]
                 stats_cases.append(c)
                 log(f"[kernel] conv_stats {json.dumps(c)}")
+                log(f"[kernel] conv_stats {shape}: {rate(c)}; depth split "
+                    f"{c['splits']}, ms by split {c['split_ms']}")
             x = ref
     for key, cases, line, src in (
             ("conv_affine_act", conv_cases, "tpugan/ops/pallas_conv.py:86",
@@ -472,14 +550,16 @@ def main() -> int:
             ("conv_stats", stats_cases, "tpugan/ops/pallas_conv_stats.py:95",
              "cuda_conv_stats.cu")):
         tot = {k: sum(c[k] for c in cases)
-               for k in ("ms", "plain_ms", "library_ms", "bound_ms", "flops",
-                         "bytes")}
+               for k in ("ms", "device_ms", "plain_ms", "library_ms",
+                         "library_device_ms", "bound_ms", "flops", "bytes")}
         report[key] = dict(
             name=key, route="cuda", source=f"tpugan_torch/csrc/{src}",
             replaces=line, max_abs_err=max(c["max_abs_err"] for c in cases),
-            ms=tot["ms"], plain_ms=tot["plain_ms"], bound_ms=tot["bound_ms"],
+            ms=tot["ms"], device_ms=tot["device_ms"], plain_ms=tot["plain_ms"],
+            bound_ms=tot["bound_ms"],
             bound_by=bound_ms(tot["flops"], tot["bytes"])[1],
-            library_ms=tot["library_ms"], cases=cases)
+            library_ms=tot["library_ms"],
+            library_device_ms=tot["library_device_ms"], cases=cases)
 
     # conv_bn_stats's backward (PyTorch's conv gradients of the unfused VJP)
     # against autograd through the plain composition, at the first BN
@@ -728,7 +808,8 @@ def main() -> int:
 
     # -- 7. report ----------------------------------------------------------
     order = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "cases")
+             "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+             "library_ms", "library_device_ms", "cases")
     kernels = [{k: report[key][k] for k in order}
                for key in ("convt_affine_act", "v1", "v2", "conv_affine_act",
                            "conv_stats")]

@@ -56,7 +56,8 @@ def twin_train_states(preset, overrides):
     g, d = build_models(cfg.model, cfg.train.precision)
     state = create_train_state(cfg, g, d)
     pcfg = port_preset(preset).override(overrides)
-    tg, td = port_models(pcfg.model, pcfg.train.precision, device="cpu",
+    tg, td = port_models(pcfg.model, pcfg.train.precision,
+                         fuse_stats=pcfg.train.fuse_stats, device="cpu",
                          generator=torch.Generator().manual_seed(0))
     pstate = port_train_state(pcfg, tg, td)
     load_jax_train_state(pstate, jax.device_get(state))

@@ -13,6 +13,9 @@ import torch
 from jax.experimental.pallas import tpu as pltpu
 
 from tpugan.ops import pallas_conv, pallas_conv_stats
+from tpugan_torch.configs import get_preset as port_preset
+from tpugan_torch.models.blocks import DBlock
+from tpugan_torch.models.registry import build_models
 from tpugan_torch.ops import convs, cuda_conv, cuda_conv_stats
 
 
@@ -140,15 +143,32 @@ def test_conv_bn_stats_skips_the_unneeded_weight_grad(rng, monkeypatch):
 
 
 def test_fuse_stats_switch():
+    """Each DBlock holds its own mode, from the config that built it: two
+    discriminators in one process run their own paths."""
     cpu = torch.zeros(1)
-    try:
-        for mode, want in (("on", True), ("off", False), ("auto", False)):
-            cuda_conv_stats.set_fuse_stats(mode)
-            assert cuda_conv_stats.fuse_stats_enabled(cpu) is want
-        with pytest.raises(ValueError, match="fuse_stats"):
-            cuda_conv_stats.set_fuse_stats("maybe")
-    finally:
-        cuda_conv_stats.set_fuse_stats("off")
+    for mode, want in (("on", True), ("off", False), ("auto", False)):
+        assert cuda_conv_stats.fuse_stats_enabled(mode, cpu) is want
+    with pytest.raises(ValueError, match="fuse_stats"):
+        cuda_conv_stats.fuse_stats_enabled("maybe", cpu)
+    with pytest.raises(ValueError, match="fuse_stats"):
+        DBlock(3, 8, batchnorm=True, fuse_stats="maybe", device="cpu")
+    cfg = port_preset("dcgan_celeba64").override(
+        {"model.ndf": 8, "model.ngf": 8, "model.nz": 8})
+    calls = []
+    real = cuda_conv_stats.conv_bn_stats
+    x = torch.zeros(2, 64, 64, 3)
+    for mode, fused in (("on", 3), ("off", 0)):
+        _, d = build_models(cfg.model, "fp32", fuse_stats=mode, device="cpu",
+                            generator=torch.Generator().manual_seed(0))
+        assert all(b.fuse_stats == mode for b in d.blocks)
+        calls.clear()
+        cuda_conv_stats.conv_bn_stats = (
+            lambda *a: calls.append(1) or real(*a))
+        try:
+            d.train()(x)
+        finally:
+            cuda_conv_stats.conv_bn_stats = real
+        assert len(calls) == fused
 
 
 def test_conv2d_impls_agree_with_xla_conv(rng):

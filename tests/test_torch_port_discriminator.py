@@ -27,12 +27,13 @@ PRESETS = [("dcgan_celeba64", {"model.ndf": 8}),
            ("dcgan_mnist", {"model.ndf": 8})]
 
 
-def _twin(preset, overrides):
+def _twin(preset, overrides, fuse_stats="off"):
     cfg = get_preset(preset).override(overrides)
     _, d = build_models(cfg.model, "fp32")
     params, state = d.init(jax.random.PRNGKey(3))
     pcfg = port_preset(preset).override(overrides)
-    td = build_discriminator(pcfg.model, "fp32", device="cpu",
+    td = build_discriminator(pcfg.model, "fp32", fuse_stats=fuse_stats,
+                             device="cpu",
                              generator=torch.Generator().manual_seed(3))
     load_jax_module(td, to_numpy(params), to_numpy(state))
     return cfg, d, params, state, td
@@ -47,17 +48,15 @@ def _images(rng, cfg, n=6):
 def fuse():
     yield
     jax_ops.set_fuse_stats("off")
-    cuda_conv_stats.set_fuse_stats("off")
 
 
 @pytest.mark.parametrize("mode", ["on", "off"])
 @pytest.mark.parametrize("preset,overrides", PRESETS)
 def test_discriminator_train_mode_matches_jax(rng, fuse, preset, overrides,
                                               mode):
-    cfg, d, params, state, td = _twin(preset, overrides)
+    cfg, d, params, state, td = _twin(preset, overrides, mode)
     x = _images(rng, cfg)
     jax_ops.set_fuse_stats(mode)
-    cuda_conv_stats.set_fuse_stats(mode)
 
     def loss(p):
         logits, ns = d.apply(p, state, jnp.asarray(x), train=True)

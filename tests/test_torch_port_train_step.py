@@ -26,7 +26,6 @@ from tpugan import ops as jax_ops
 from tpugan.data.datasets import make_synthetic
 from tpugan.train.steps import build_train_step
 from tpugan_torch.ckpt.from_jax import flatten
-from tpugan_torch.ops import cuda_conv_stats
 from tpugan_torch.train.steps import build_train_step as port_step
 
 CASES = [
@@ -46,7 +45,6 @@ CASES = [
 def fuse():
     yield
     jax_ops.set_fuse_stats("off")
-    cuda_conv_stats.set_fuse_stats("off")
 
 
 def _compare_state(jstate, pstate, atol):
@@ -70,7 +68,6 @@ def test_three_steps_match_jax(fuse, preset, overrides, mode):
                  "train.fuse_stats": mode}
     cfg, g, d, jstate, pcfg, pstate = twin_train_states(preset, overrides)
     jax_ops.set_fuse_stats(mode)
-    cuda_conv_stats.set_fuse_stats(mode)
     jstep = build_train_step(cfg, g, d)
     pstep = port_step(pcfg, pstate.g, pstate.d)
     bsz = cfg.data.batch_size

@@ -19,7 +19,6 @@ from tpugan_torch.ckpt.from_jax import load_jax_train_state
 from tpugan_torch.configs import get_preset as port_preset
 from tpugan_torch.data.datasets import load_dataset, make_synthetic
 from tpugan_torch.data.pipeline import make_input_pipeline
-from tpugan_torch.ops import cuda_conv_stats
 from tpugan_torch.train.trainer import Trainer
 
 TINY = {"data.dataset": "synthetic", "data.synthetic_size": 20,
@@ -55,7 +54,6 @@ def test_trainer_logs_the_jax_trainers_losses(tmp_path, mode):
         last = pt.train(3)
     finally:
         jax_ops.set_fuse_stats("off")
-        cuda_conv_stats.set_fuse_stats("off")
     ref, got = _metrics(tmp_path / "jax"), _metrics(tmp_path / "port")
     assert [r["step"] for r in got] == [1, 2, 3] == [r["step"] for r in ref]
     for r, g in zip(ref, got):

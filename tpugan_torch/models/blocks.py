@@ -12,9 +12,9 @@ Under the "pallas" impl (``ops.convs.set_default_impl``) an eval-mode GBlock
 or DBlock is one call of a fused kernel (``cuda_convt.convt_affine_act``,
 ``cuda_conv.conv_affine_act``): BatchNorm (or the conv bias) folds into its
 per-channel (a, b) epilogue.  These kernels are forward-only.  A train-mode
-DBlock with BatchNorm runs ``cuda_conv_stats.conv_bn_stats`` when
-``fuse_stats`` is on: the conv and its batch statistics in one kernel, with a
-PyTorch backward.
+DBlock with BatchNorm runs ``cuda_conv_stats.conv_bn_stats`` when its own
+``fuse_stats`` mode (``train.fuse_stats`` of the config that built it) is on:
+the conv and its batch statistics in one kernel, with a PyTorch backward.
 """
 
 from __future__ import annotations
@@ -89,12 +89,16 @@ class GHead(nn.Module):
 
 class DBlock(nn.Module):
     """Conv(k4,s2,p1) + [BN] + LeakyReLU(leak); spectral norm raises (it is
-    not ported yet)."""
+    not ported yet).  ``fuse_stats`` ("on" | "off" | "auto") selects the
+    train-mode path of a block with BN."""
 
     def __init__(self, cin, cout, *, batchnorm=False, spectral_norm=False,
-                 leak=0.2, dtype=torch.bfloat16, device="cuda",
-                 generator=None):
+                 leak=0.2, fuse_stats="off", dtype=torch.bfloat16,
+                 device="cuda", generator=None):
         super().__init__()
+        if fuse_stats not in cuda_conv_stats.FUSE_MODES:
+            raise ValueError(f"unknown fuse_stats mode {fuse_stats!r}")
+        self.fuse_stats = fuse_stats
         if spectral_norm:
             raise NotImplementedError(
                 "spectral norm is not ported yet (ROADMAP.md, Queue A: "
@@ -129,7 +133,8 @@ class DBlock(nn.Module):
 
     def forward(self, x):
         if self.training:
-            if (self.bn is not None and cuda_conv_stats.fuse_stats_enabled(x)
+            if (self.bn is not None
+                    and cuda_conv_stats.fuse_stats_enabled(self.fuse_stats, x)
                     and x.shape[1] % 2 == 0 and x.shape[2] % 2 == 0):
                 return self._fused_train(x)
         elif convs.resolve_impl(None) == "pallas":

@@ -84,13 +84,14 @@ class Discriminator(nn.Module):
 
     def __init__(self, image_size: int, channels: int, ndf: int,
                  *, batchnorm: bool = True, spectral_norm: bool = False,
-                 leak: float = 0.2, dtype=torch.bfloat16, device="cuda",
-                 generator=None):
+                 leak: float = 0.2, fuse_stats: str = "off",
+                 dtype=torch.bfloat16, device="cuda", generator=None):
         super().__init__()
         self.image_size = image_size
         s0, chans = _d_schedule(image_size, ndf)
-        kw = dict(spectral_norm=spectral_norm, leak=leak, dtype=dtype,
-                  device=device, generator=generator)
+        kw = dict(spectral_norm=spectral_norm, leak=leak,
+                  fuse_stats=fuse_stats, dtype=dtype, device=device,
+                  generator=generator)
         cin = channels
         self.n_blocks = len(chans)
         for i, cout in enumerate(chans):

@@ -38,14 +38,16 @@ def build_generator(cfg: ModelConfig, precision: str = "bf16", *,
 
 
 def build_discriminator(cfg: ModelConfig, precision: str = "bf16", *,
-                        device="cuda",
+                        fuse_stats: str = "off", device="cuda",
                         generator: torch.Generator | None = None):
     """The discriminator for a ModelConfig, weights drawn from
-    ``generator``."""
+    ``generator``; ``fuse_stats`` (a ``train.fuse_stats`` mode) goes to each
+    DBlock."""
     if cfg.arch == "dcgan":
         return Discriminator(cfg.image_size, cfg.channels, cfg.ndf,
                              batchnorm=cfg.d_batchnorm,
                              spectral_norm=cfg.d_spectral_norm, leak=cfg.leak,
+                             fuse_stats=fuse_stats,
                              dtype=compute_dtype(precision), device=device,
                              generator=generator)
     if cfg.arch == "cdcgan":
@@ -56,9 +58,11 @@ def build_discriminator(cfg: ModelConfig, precision: str = "bf16", *,
 
 
 def build_models(cfg: ModelConfig, precision: str = "bf16", *,
-                 device="cuda", generator: torch.Generator | None = None):
+                 fuse_stats: str = "off", device="cuda",
+                 generator: torch.Generator | None = None):
     """(generator, discriminator) for a ModelConfig, G's weights drawn from
-    ``generator`` first, then D's."""
+    ``generator`` first, then D's; ``fuse_stats`` as in
+    ``build_discriminator``."""
     kw = dict(device=device, generator=generator)
     return (build_generator(cfg, precision, **kw),
-            build_discriminator(cfg, precision, **kw))
+            build_discriminator(cfg, precision, fuse_stats=fuse_stats, **kw))

@@ -4,7 +4,10 @@ Each ``csrc/<name>.cu`` compiles with ``nvcc`` for ``sm_90a`` into its own
 shared library with a plain C interface, loaded with ``ctypes``.  A library
 is built once, at first use, into ``tpugan_torch/_build/`` (listed in
 ``.gitignore``), under a name that hashes its sources and flags, so an edit
-rebuilds it.  ``build_all`` starts one ``nvcc`` per source at once.
+rebuilds it.  ``build_all`` starts one ``nvcc`` per source at once.  The
+Hopper kernels (``cuda_convt``, ``cuda_conv_stats``) include
+``csrc/igemm_sm90.cuh``; it needs no library beyond the CUDA runtime (the
+TMA tensor maps are encoded through the runtime's driver entry point).
 
 Nothing here runs at import: the CPU tests import every module, and a
 machine without a CUDA toolkit has no ``nvcc``.
@@ -18,6 +21,7 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
@@ -48,7 +52,7 @@ def _lib_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
-def _start(name: str) -> tuple[subprocess.Popen, Path, Path] | None:
+def _start(name: str) -> tuple[subprocess.Popen, Path, Path, float] | None:
     path = _lib_path(name)
     if path.exists():
         return None
@@ -57,23 +61,24 @@ def _start(name: str) -> tuple[subprocess.Popen, Path, Path] | None:
     cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
-    return proc, tmp, path
+    return proc, tmp, path, time.time()
 
 
-def _finish(name: str, job) -> str:
+def _finish(name: str, job) -> tuple[float, str]:
     if job is None:
-        return ""
-    proc, tmp, path = job
+        return 0.0, ""
+    proc, tmp, path, t0 = job
     out, _ = proc.communicate()
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {name}.cu:\n{out}")
     os.replace(tmp, path)
-    return out
+    return time.time() - t0, out
 
 
-def build_all() -> dict[str, str]:
+def build_all() -> dict[str, tuple[float, str]]:
     """Build every kernel library, one nvcc per source in parallel; returns
-    each build's compiler output (registers, shared memory, spills)."""
+    each build's (seconds from the start, compiler output: registers, shared
+    memory, spills); (0, "") for a library already built."""
     jobs = {name: _start(name) for name in SOURCES}
     return {name: _finish(name, job) for name, job in jobs.items()}
 
@@ -96,7 +101,11 @@ def check(rc: int, what: str) -> None:
                            f"({torch.cuda.get_device_name()})")
 
 
-def stream_ptr() -> ctypes.c_void_p:
+def stream_ptr(device: int) -> int:
+    """The raw handle of the current stream on CUDA device ``device``: the
+    call PyTorch's own generated launchers make, without the Stream object
+    that ``torch.cuda.current_stream()`` builds (several microseconds of
+    host time a launch)."""
     import torch
 
-    return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+    return torch._C._cuda_getCurrentRawStream(device)

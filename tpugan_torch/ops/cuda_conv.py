@@ -112,7 +112,7 @@ def _launch(x, w, scale, shift, act, leak, out_dtype):
         rc = _lib().tg_conv_affine_act(
             x.data_ptr(), w.data_ptr(), a.data_ptr(), b.data_ptr(),
             y.data_ptr(), n, h, wd, cin, cout, ACT_CODES[act], float(leak),
-            int(out_dtype == torch.float32), _build.stream_ptr())
+            int(out_dtype == torch.float32), _build.stream_ptr(x.device.index))
     _build.check(rc, "conv_affine_act")
     launches += 1
     return y

@@ -15,6 +15,14 @@ accumulation and no multiplies on dilation zeros.
 CUDA tensor to the kernel; it raises on a shape or dtype the kernel does not
 take, and when autograd would need a gradient through it (the kernel is
 forward-only, as the Pallas kernel has no VJP).
+
+The kernel reads x, and w where Cout > 8, by TMA, which needs rows of a
+multiple of 16 bytes and 16-byte-aligned bases.  ``kernel_operands`` states
+the rule: Cin is padded with zero channels to a multiple of 8 (x and w),
+Cout with zero columns of w to a multiple of 8 where TMA reads w, and an
+operand off 16-byte alignment is copied.  The generator's shapes (Cin 64 to
+512, Cout 3 or a multiple of 64, tensors from PyTorch's allocator) take no
+copy.
 """
 
 from __future__ import annotations
@@ -25,10 +33,18 @@ import torch
 import torch.nn.functional as F
 
 from tpugan_torch.ops import _build
-from tpugan_torch.ops.kernel_common import ACT_CODES, TAPS, act as _act
+from tpugan_torch.ops.kernel_common import (ACT_CODES, TAPS, aligned,
+                                            pad_dim, round_up)
+from tpugan_torch.ops.kernel_common import act as _act
 
 # Kernel launches made by ``convt_affine_act`` (CUDA tensors only).
 launches = 0
+
+# Cout <= NARROW_COUT with Cin <= NARROW_MAX_CIN runs the four-phase kernel
+# for few channels (csrc/cuda_convt.cu, convt_narrow), which keeps the whole
+# weight in shared memory and reads it without TMA.
+NARROW_COUT = 8
+NARROW_MAX_CIN = 512
 
 
 def _check(x, w, scale, shift, act):
@@ -83,9 +99,24 @@ def _lib():
     fn = lib.tg_convt_affine_act
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, p, i, i, i, i, i, i, ctypes.c_float, i, p]
+        fn.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, ctypes.c_float,
+                       i, p]
         fn.restype = ctypes.c_int
     return lib
+
+
+def kernel_operands(x, w):
+    """(x, w, ldb) as the kernel takes them: Cin zero-padded to a multiple
+    of 8; where the kernel reads w by TMA (Cout > NARROW_COUT or Cin >
+    NARROW_MAX_CIN) Cout zero-padded to ldb, a multiple of 8; a TMA operand
+    off 16-byte alignment copied.  The padding adds zero products only."""
+    cin, cout = w.shape[2], w.shape[3]
+    cin_p = round_up(cin, 8)
+    x, w = pad_dim(x, 3, cin_p), pad_dim(w, 2, cin_p)
+    if cout <= NARROW_COUT and cin_p <= NARROW_MAX_CIN:
+        return aligned(x), w, cout
+    ldb = round_up(cout, 8)
+    return aligned(x), aligned(pad_dim(w, 3, ldb)), ldb
 
 
 def _launch(x, w, scale, shift, act, leak, out_dtype):
@@ -99,18 +130,18 @@ def _launch(x, w, scale, shift, act, leak, out_dtype):
     for t in (w, scale, shift):
         if t.device != dev:
             raise ValueError(f"all operands must be on {dev}, got {t.device}")
-    x = x.contiguous()
-    w = w.contiguous()
+    cout = w.shape[-1]
+    x, w, ldb = kernel_operands(x.contiguous(), w.contiguous())
     a = scale.to(torch.float32).contiguous()
     b = shift.to(torch.float32).contiguous()
     n, h, wd, cin = x.shape
-    cout = w.shape[-1]
     y = torch.empty((n, 2 * h, 2 * wd, cout), dtype=out_dtype, device=dev)
     with torch.cuda.device(dev):
         rc = _lib().tg_convt_affine_act(
             x.data_ptr(), w.data_ptr(), a.data_ptr(), b.data_ptr(),
-            y.data_ptr(), n, h, wd, cin, cout, ACT_CODES[act], float(leak),
-            int(out_dtype == torch.float32), _build.stream_ptr())
+            y.data_ptr(), n, h, wd, cin, cout, ldb, ACT_CODES[act],
+            float(leak), int(out_dtype == torch.float32),
+            _build.stream_ptr(dev.index))
     _build.check(rc, "convt_affine_act")
     launches += 1
     return y

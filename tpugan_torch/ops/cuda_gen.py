@@ -156,7 +156,7 @@ def launch(lib_name: str, fn_name: str, z, head, blocks, s0, c0, out_shape):
         rc = fn(z.data_ptr(), nz, wh.data_ptr(), ah.data_ptr(), bh.data_ptr(),
                 s0, c0, nl, addr(w_ptrs), addr(a_ptrs), addr(b_ptrs),
                 addr(c_arr), work.data_ptr(), elems, y.data_ptr(), n, bt,
-                _build.stream_ptr())
+                _build.stream_ptr(dev.index))
     _build.check(rc, fn_name)
     return y
 

@@ -12,9 +12,9 @@ One call = one data batch = one D update, plus a G update when
   statistics, with the updated D), the G loss, G's optimizer step.  D's
   parameters are frozen for that backward, so no gradient reaches them.
 
-``train.fuse_stats`` selects the train-mode DBlock path ("on": the conv +
-BN-statistics kernel of ``ops/cuda_conv_stats.py``; "auto": on for CUDA
-tensors); each call sets the process-wide switch from its own config.
+The train-mode DBlock path ("on": the conv + BN-statistics kernel of
+``ops/cuda_conv_stats.py``; "auto": on for CUDA tensors) is each DBlock's
+own ``fuse_stats``, set from ``train.fuse_stats`` by ``build_models``.
 
 BatchNorm statistics thus update in the JAX package's order: G's in both
 steps, D's on the real and fake forwards of the D step and again in the G
@@ -37,7 +37,6 @@ from torch import nn
 
 from tpugan_torch.configs import Config
 from tpugan_torch.losses.adversarial import d_loss_fn, g_loss_fn
-from tpugan_torch.ops import cuda_conv_stats
 from tpugan_torch.sample import threefry
 from tpugan_torch.train.state import TrainState
 
@@ -87,11 +86,8 @@ def build_train_step(cfg: Config, g: nn.Module, d: nn.Module
     kind, nz, n_critic = cfg.loss.kind, cfg.model.nz, cfg.loss.n_critic
     hflip = cfg.data.hflip
     clip = cfg.loss.clip_value if kind == "wgan" else None
-    cuda_conv_stats.set_fuse_stats(cfg.train.fuse_stats)  # validates it
 
     def step(state: TrainState, batch: Dict) -> Tuple[TrainState, Dict]:
-        # the switch is process-wide: each step asserts its own config's
-        cuda_conv_stats.set_fuse_stats(cfg.train.fuse_stats)
         # the trainer's sample grids put G in eval mode between steps
         g.train()
         d.train()

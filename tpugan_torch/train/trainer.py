@@ -61,6 +61,7 @@ class Trainer:
         self.device = resolve_device(device)
         gen = torch.Generator().manual_seed(cfg.train.seed)
         self.g, self.d = build_models(cfg.model, cfg.train.precision,
+                                      fuse_stats=cfg.train.fuse_stats,
                                       device=self.device, generator=gen)
         self.state: TrainState = create_train_state(cfg, self.g, self.d)
         self.step_fn = build_train_step(cfg, self.g, self.d)
