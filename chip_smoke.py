@@ -15,7 +15,8 @@ Phases, each of which fails the run (no exception is caught):
    the same calls replayed as a CUDA graph, the device's time alone; each
    layer's rate and share of its bound on both measures, the conv +
    BN-statistics kernel's depth split against its alternatives, and where
-   a v2 launch's device time goes, layer by layer, from its blocks' clocks;
+   a megakernel launch's device time goes, layer by layer, from its
+   blocks' clocks; v1's image must be v2's rounded to bf16, bit for bit;
 3. drive the main path at full width (``dcgan_celeba64``: nz=100, ngf=64,
    random weights from a seeded ``torch.Generator``, BN running stats from a
    few train-mode forwards): ``Sampler.sample(256)`` under
@@ -45,12 +46,18 @@ launched on its path.  The last lines are the ``kernels`` JSON, the card's
 name and power limit, and ``{"ok": true, "device": {...}}``.  Exits
 non-zero without a CUDA device or without the ``tpugan_torch`` package
 beside this file.
+
+    python3 chip_smoke.py --against DIR
+
+compares megakernel v2 of the checkout in DIR (the parent commit, say) with
+this one's, in turns on one card: the same image bits, and each run's times.
 """
 
 from __future__ import annotations
 
 import io
 import json
+import re
 import subprocess
 import sys
 import threading
@@ -217,31 +224,30 @@ def conv_work(x, w, out_bytes):
     return flops, nbytes(x, w) + out_bytes
 
 
-def v2_layers(zb, hb, bb, s0, c0, reps: int = 5) -> dict:
-    """Where a v2 launch's device time goes, from every block's device
-    clock (%globaltimer) at its start, as it finishes its tiles of each
-    layer and as it leaves the layer's grid barrier, averaged over ``reps``
-    launches: per layer (the head, then each ConvT layer) the ms until the
-    last block finished its tiles (``work_ms``; from the last block out of
-    the barrier before, or the first block's start) and then until the
-    last block left the barrier (``barrier_ms``), the median block's tiles
-    (``median_work_ms``), and the ms between the first and the last
-    block's start (``start_ms``)."""
+def gen_layers(mod, zb, hb, bb, s0, c0, reps: int = 5) -> dict:
+    """Where a megakernel launch's device time goes (``mod``: cuda_gen for
+    v1, cuda_gen2 for v2), from every block's device clock (%globaltimer)
+    at its start, as it finishes its tiles of each layer and as it leaves
+    the layer's grid barrier, averaged over ``reps`` launches of the
+    stamped instantiation: per layer (the head, then each ConvT layer) the
+    ms until the last block finished its tiles (``work_ms``; from the last
+    block out of the barrier before, or the first block's start) and then
+    until the last block left the barrier (``barrier_ms``), the median
+    block's tiles (``median_work_ms``), and the ms between the first and
+    the last block's start (``start_ms``)."""
     import torch
-
-    from tpugan_torch.ops import cuda_gen2
 
     dev = zb.device
     couts = [a.shape[0] for _, a, _, _ in bb]
-    grid, _ = cuda_gen2.plan(zb.shape[0], zb.shape[1], s0, c0, couts,
-                             cuda_gen2.resident(dev))
+    grid, _ = mod.plan(zb.shape[0], zb.shape[1], s0, c0, couts,
+                       mod.resident(dev))
     layers = len(bb) + 1
     stamps = torch.zeros((2 * layers + 1, grid), dtype=torch.int64,
                          device=dev)
     work, wait, spread = [0.0] * layers, [0.0] * layers, 0.0
     median = [0.0] * layers
     for _ in range(reps):
-        cuda_gen2.launch(zb, hb, bb, s0, c0, stamps=stamps)
+        mod.launch(zb, hb, bb, s0, c0, stamps=stamps)
         torch.cuda.synchronize()
         t = stamps.double() / 1e6
         done, out = t[1::2].max(dim=1).values, t[2::2].max(dim=1).values
@@ -253,6 +259,20 @@ def v2_layers(zb, hb, bb, s0, c0, reps: int = 5) -> dict:
             median[i] += (t[2 * i + 1] - start[i]).median().item() / reps
     return dict(work_ms=work, barrier_ms=wait, median_work_ms=median,
                 start_ms=spread)
+
+
+def includes(src: str) -> list[str]:
+    """The headers of ``tpugan_torch/csrc`` that kernel source ``src``
+    includes, itself or through another header."""
+    csrc = ROOT / "tpugan_torch" / "csrc"
+    seen, todo = [], [src]
+    while todo:
+        for name in re.findall(r'#include "([^"]+)"',
+                               (csrc / todo.pop()).read_text()):
+            if name not in seen:
+                seen.append(name)
+                todo.append(name)
+    return [f"tpugan_torch/csrc/{name}" for name in seen]
 
 
 def gen_work(z, head, blocks, s0, c0, out_elems):
@@ -269,6 +289,93 @@ def gen_work(z, head, blocks, s0, c0, out_elems):
     read = z.numel() * 2 + wh.numel() * 2 + nbytes(head[1], head[2])
     read += sum(w.numel() * 2 + nbytes(a, b) for w, a, b in blocks)
     return flops, read + out_elems * 4
+
+
+def make_generator(preset: str, dev, overrides=None):
+    """(cfg, eval-mode generator) of ``preset`` at its full width on ``dev``:
+    random weights from a ``torch.Generator`` seeded 0, BN running stats
+    from three train-mode forwards at batch ``BATCH``."""
+    import torch
+
+    from tpugan_torch.configs import get_preset
+    from tpugan_torch.models.registry import build_generator
+
+    cfg = get_preset(preset).override(overrides or {})
+    gen = torch.Generator(device=dev).manual_seed(0)
+    g = build_generator(cfg.model, cfg.train.precision, device=dev,
+                        generator=gen)
+    cond = cfg.model.arch == "cdcgan"
+    with torch.no_grad():
+        g.train()
+        for _ in range(3):
+            z = torch.randn(BATCH, cfg.model.nz, device=dev, generator=gen)
+            if cond:
+                y = torch.randint(0, cfg.model.n_classes, (BATCH,),
+                                  device=dev, generator=gen)
+                g(z, y)
+            else:
+                g(z)
+    return cfg, g.eval()
+
+
+def measure_v2(tree: str) -> int:
+    """``--measure-v2 TREE``: megakernel v2 of the port in checkout TREE on
+    phase 2's main-path input (``dcgan_celeba64``, batch 256, the seeded
+    weights and noise): one JSON line with the image's sha256, the launch's
+    ``ms`` and ``device_ms`` on operands made once, and the registers
+    ``ptxas`` gave the library's kernels."""
+    import hashlib
+
+    import torch
+
+    sys.path.insert(0, str(Path(tree).resolve()))
+    from tpugan_torch.ops import _build, cuda_gen2
+    from tpugan_torch.sample.sampler import seeded_noise
+
+    require(torch.cuda.is_available(), "no CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    secs, out = _build.build_all()["cuda_gen2"]
+    regs = [line.strip() for line in out.splitlines()
+            if "registers" in line or "spill" in line]
+    cfg, g = make_generator("dcgan_celeba64", dev)
+    z = torch.from_numpy(seeded_noise(cfg.model.nz, BATCH, seed=0)).to(dev)
+    with torch.no_grad():
+        img = cuda_gen2.generator_forward(g, z)
+        hd, bl, (ss, cc), zz = cuda_gen2.fold_inputs(g, z)
+        zb, hb, bb, cp = cuda_gen2.kernel_operands(
+            zz, hd, bl, ss, cc, cuda_gen2.layer_kinds(
+                ss, cc, [w.shape[3] for w, _, _ in bl]))
+        t = timed(lambda: cuda_gen2.launch(zb, hb, bb, ss, cp), iters=10)
+    print(json.dumps(dict(
+        tree=str(tree), source=cuda_gen2.__file__, build_s=secs,
+        sha256=hashlib.sha256(img.cpu().numpy().tobytes()).hexdigest(),
+        **t, ptxas=regs)))
+    return 0
+
+
+def against(other: str) -> int:
+    """``--against DIR``: megakernel v2 of the checkout in DIR (the parent
+    commit, say) and of this one, in turns on one card (DIR, this, this,
+    DIR), each in a process of its own (``--measure-v2``): the same image
+    bits on the same seeded input, and each run's times and registers."""
+    runs = []
+    for tree in (other, ROOT, ROOT, other):
+        proc = subprocess.run([sys.executable, __file__, "--measure-v2",
+                               str(tree)], capture_output=True, text=True,
+                              timeout=900)
+        require(proc.returncode == 0,
+                f"--measure-v2 {tree} failed:\n{proc.stdout}{proc.stderr}")
+        runs.append(json.loads(proc.stdout.strip().splitlines()[-1]))
+        log(f"[against] {json.dumps(runs[-1])}")
+    require(len({r["sha256"] for r in runs}) == 1,
+            "v2's image differs between the two checkouts")
+    for label, pick in (("other", (0, 3)), ("this", (1, 2))):
+        log(f"[against] {label}: ms "
+            f"{', '.join(str(runs[i]['ms']) for i in pick)}; device_ms "
+            f"{', '.join(str(runs[i]['device_ms']) for i in pick)}")
+    log("[against] the same image bits in all four runs")
+    return 0
 
 
 def main() -> int:
@@ -290,8 +397,7 @@ def main() -> int:
     from tpugan_torch.configs import get_preset
     from tpugan_torch.data.datasets import load_dataset
     from tpugan_torch.data.pipeline import make_input_pipeline
-    from tpugan_torch.models.registry import (build_discriminator,
-                                              build_generator)
+    from tpugan_torch.models.registry import build_discriminator
     from tpugan_torch.ops import (_build, convs, cuda_conv, cuda_conv_stats,
                                   cuda_convt, cuda_gen, cuda_gen2)
     from tpugan_torch.ops.fused import bn_affine
@@ -328,30 +434,14 @@ def main() -> int:
     for name in _build.SOURCES:
         _build.load(name)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    res = cuda_gen2.resident(dev)
-    log(f"[build] cuda_gen2: {res} blocks resident ({res / sms:g} a SM)")
-    require(res >= sms, "the v2 kernel does not fit one block a SM")
+    for mod in (cuda_gen, cuda_gen2):
+        res = mod.resident(dev)
+        name = mod.__name__.rsplit(".", 1)[1]
+        log(f"[build] {name}: {res} blocks resident ({res / sms:g} a SM)")
+        require(res >= sms, f"the {name} kernel does not fit one block a SM")
 
     # -- set-up: the full-width generators --------------------------------
-    def make(preset, overrides=None, seed=0):
-        cfg = get_preset(preset).override(overrides or {})
-        gen = torch.Generator(device=dev).manual_seed(seed)
-        g = build_generator(cfg.model, cfg.train.precision, device=dev,
-                            generator=gen)
-        cond = cfg.model.arch == "cdcgan"
-        with torch.no_grad():
-            g.train()
-            for i in range(3):  # BN running stats from train-mode forwards
-                z = torch.randn(BATCH, cfg.model.nz, device=dev, generator=gen)
-                if cond:
-                    y = torch.randint(0, cfg.model.n_classes, (BATCH,),
-                                      device=dev, generator=gen)
-                    g(z, y)
-                else:
-                    g(z)
-        return cfg, g.eval()
-
-    cfg, g = make("dcgan_celeba64")
+    cfg, g = make_generator("dcgan_celeba64", dev)
     require(cfg.model.nz == 100 and cfg.model.ngf == 64, "not full width")
     require(cfg.train.kernels == "xla", "the preset's sampler runs PyTorch ops")
     log(f"[setup] dcgan_celeba64 nz={cfg.model.nz} ngf={cfg.model.ngf} "
@@ -441,57 +531,45 @@ def main() -> int:
         # (b) megakernels against their plain versions
         def check_gen(label, module, gz, y, versions):
             hd, bl, (ss, cc), zz = cuda_gen2.fold_inputs(module, gz, y)
-            n, cf, p = gz.shape[0], bl[-1][0].shape[3], 2 ** len(bl)
-            out = {}
+            # both kernels' operands, made once, so that "ms" times the
+            # launch alone (not the fold, the casts or the depth-to-space)
+            zb, hb, bb, cp = cuda_gen.kernel_operands(
+                zz, hd, bl, ss, cc, cuda_gen.layer_kinds(
+                    ss, cc, [w.shape[3] for w, _, _ in bl]))
+            out, images = {}, {}
             for key in versions:
-                # the kernel's operands made once, so that "ms" times the
-                # launch alone (not the fold, the casts or the
-                # depth-to-space)
                 if key == "v1":
+                    mod, image = cuda_gen, lambda t: t  # noqa: E731
                     got = cuda_gen.generator_forward(module, gz)
-                    ref = cuda_gen.generator_forward_plain(zz, hd, bl, ss, cc)
                     plain = lambda: cuda_gen.generator_forward_plain(  # noqa: E731
                         zz, hd, bl, ss, cc)
-                    ops = (zz.to(bf).contiguous(),
-                           (hd[0].to(bf).contiguous(), hd[1], hd[2]),
-                           [(w.to(bf).contiguous(), a, b) for w, a, b in bl])
-                    run = lambda: cuda_gen.launch(  # noqa: E731
-                        *ops, ss, cc, (n, ss * p, ss * p, cf))
+                    ref = plain()
                 else:
+                    mod, image = cuda_gen2, cuda_gen2.depth_to_space
                     got = cuda_gen2.generator_forward(module, gz, y)
-                    ref = cuda_gen2.depth_to_space(
-                        cuda_gen2.generator_forward_plain(zz, hd, bl, ss, cc))
                     plain = lambda: cuda_gen2.generator_forward_plain(  # noqa: E731
                         zz, hd, bl, ss, cc)
-                    zb, hb, bb, cp = cuda_gen2.kernel_operands(
-                        zz, hd, bl, ss, cc, cuda_gen2.layer_kinds(
-                            ss, cc, [w.shape[3] for w, _, _ in bl]))
-                    run = lambda: cuda_gen2.launch(  # noqa: E731
-                        zb, hb, bb, ss, cp)
+                    ref = image(plain())
+                run = lambda: mod.launch(zb, hb, bb, ss, cp)  # noqa: E731
                 torch.cuda.synchronize()
                 require(got.shape == ref.shape, f"{key} {label}: shape")
                 require(bool(torch.isfinite(got).all()), f"{key}: non-finite")
                 err = (got - ref).abs()
-                if key == "v1":
-                    ok, limit = err.max().item() <= 5e-2, "5e-2"
-                else:
-                    ok = image_err(got, ref)[1]
-                    limit = "2^-7 |ref| + 1e-2 max|ref|"
-                require(ok, f"{key} {label}: max err {err.max().item()} "
+                require(image_err(got, ref)[1],
+                        f"{key} {label}: max err {err.max().item()} "
                         f"(largest value {ref.abs().max().item()}; limit "
-                        f"{limit})")
+                        f"2^-7 |ref| + 1e-2 max|ref|)")
+                # repeated launches: the same bits
+                again = [run() for _ in range(3)]
+                torch.cuda.synchronize()
+                require(all(torch.equal(a, again[0]) for a in again)
+                        and torch.equal(image(again[0]), got),
+                        f"{key} {label}: repeated launches differ")
+                images[key] = got
                 flops, byt = gen_work(zz, hd, bl, ss, cc, got.numel())
                 bms, by = bound_ms(flops, byt)
-                extra = {}
-                if key == "v2":  # repeated launches: the same bits
-                    again = [run() for _ in range(3)]
-                    torch.cuda.synchronize()
-                    require(all(torch.equal(a, again[0]) for a in again)
-                            and torch.equal(cuda_gen2.depth_to_space(
-                                again[0]), got),
-                            f"v2 {label}: repeated launches differ")
-                    extra.update(v2_layers(zb, hb, bb, ss, cp))
-                c = dict(case=label, **timed(run, iters=10), **extra,
+                c = dict(case=label, **timed(run, iters=10),
+                         **gen_layers(mod, zb, hb, bb, ss, cp),
                          plain_ms=time_ms(plain, 3), library_ms=None,
                          library_device_ms=None,
                          bound_ms=bms, bound_by=by,
@@ -500,22 +578,36 @@ def main() -> int:
                          scale=ref.abs().max().item())
                 log(f"[kernel] {key} {json.dumps(c)}")
                 out[key] = c
+            if "v1" in images:
+                # v1 runs v2's tiles in v2's sum order and rounds the image
+                # to bf16 (to nearest, ties to even, as torch rounds): a
+                # difference is a fault in one of the two instantiations
+                v1, v2r = images["v1"], images["v2"].to(bf).float()
+                off = (v1 - v1.to(bf).float()).abs()
+                require(torch.equal(v1, v1.to(bf).float()),
+                        f"v1 {label}: {int((off > 0).sum())} values are not "
+                        f"a bf16's (up to {off.max().item()} from one)")
+                require(torch.equal(v1, v2r),
+                        f"v1 {label}: not v2's image rounded to bf16 "
+                        f"({int((v1 != v2r).sum())} values differ, by up to "
+                        f"{(v1 - v2r).abs().max().item()})")
+                log(f"[kernel] v1 {label}: every value a bf16's, and bit "
+                    f"for bit v2's image rounded to bf16")
             return out
 
-        # v1 rounds every activation and the image to bf16, so one flipped
-        # bf16 ulp deep in the net can move a pixel by ~1e-2: 5e-2, the JAX
-        # megakernel test's bound.  v2 rounds the activations to bf16 as the
-        # plain version does (as matmul operands) and keeps the image fp32:
-        # it is held to a limit at the image's own scale (image_err), which
-        # a dropped depth stage fails.
+        # Both megakernels round the activations to bf16 as the plain
+        # versions do (v1 between layers, v2 as matmul operands), v1 its
+        # image too; each is held to a limit at the image's own scale
+        # (image_err), which a dropped depth stage fails.
         main64 = check_gen("dcgan_celeba64 64px b256", g, z, None,
                            ["v1", "v2"])
-        _, g128 = make("cdcgan_celeba128", {"model.arch": "dcgan",
-                                            "model.n_classes": 0})
+        _, g128 = make_generator("cdcgan_celeba128", dev,
+                                 {"model.arch": "dcgan", "model.n_classes": 0})
         z128 = torch.from_numpy(seeded_noise(100, 16, seed=1)).to(dev)
-        c128 = check_gen("dcgan 128px ngf64 b16", g128, z128, None, ["v2"])
+        c128 = check_gen("dcgan 128px ngf64 b16", g128, z128, None,
+                         ["v1", "v2"])
         del g128
-        ccfg, gc = make("cdcgan_celeba64")
+        ccfg, gc = make_generator("cdcgan_celeba64", dev)
         yc = torch.arange(BATCH, device=dev) % ccfg.model.n_classes
         cond64 = check_gen("cdcgan_celeba64 64px b256", gc, z, yc, ["v2"])
         del gc
@@ -524,7 +616,7 @@ def main() -> int:
             ("v2", cuda_gen2, "tpugan/ops/pallas_gen2.py:209",
              "cuda_gen2.cu")):
         m = main64[key]
-        extra = [c128["v2"], cond64["v2"]] if key == "v2" else []
+        extra = [c128[key]] + ([cond64["v2"]] if key == "v2" else [])
         report[key] = dict(
             name=f"{mod.__name__.rsplit('.', 1)[1]}.generator_forward",
             route="cuda", source=f"tpugan_torch/csrc/{src}", replaces=line,
@@ -980,6 +1072,8 @@ def main() -> int:
     kernels = [{k: report[key][k] for k in order}
                for key in ("convt_affine_act", "v1", "v2", "conv_affine_act",
                            "conv_stats")]
+    for k in kernels:  # the headers each source builds with
+        k["includes"] = includes(k["source"].rsplit("/", 1)[1])
     log(f"[done] total {time.time() - t_start:.1f}s")
     print(json.dumps({"kernels": kernels}))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -993,4 +1087,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--measure-v2"]:
+        sys.exit(measure_v2(sys.argv[2]))
+    if sys.argv[1:2] == ["--against"]:
+        sys.exit(against(sys.argv[2]))
     sys.exit(main())

@@ -58,6 +58,18 @@ def assert_fp32_close(got, ref):
         f"max err {err}, largest value {ref.abs().max().item()}")
 
 
+def assert_image_close(got, ref):
+    """A megakernel's image against its plain version: the same bf16
+    products, fp32 sums in another order, which may flip an activation's
+    bf16 rounding in any layer, compounding through the layers after it:
+    2^-7 |ref| + 1e-2 of the image's largest value (chip_smoke.image_err).
+    """
+    err = (got.float() - ref.float()).abs()
+    r = ref.float().abs()
+    assert bool((err <= 2.0 ** -7 * r + 1e-2 * r.max()).all()), (
+        f"max err {err.max().item()}, largest value {r.max().item()}")
+
+
 def assert_close_in(dtype, got, ref):
     if dtype == BF:
         assert_bf16_close(got, ref)
@@ -152,11 +164,14 @@ def test_megakernels_match_plain(cuda, preset, overrides, n):
         # fp32 activations, bf16 matmul operands: sum-order ulps only
         torch.testing.assert_close(got2, ref2, rtol=0, atol=3e-3)
         if y is None:
+            before = cuda_gen.launches
             got1 = cuda_gen.generator_forward(g, z)
+            assert cuda_gen.launches == before + 1
             ref1 = cuda_gen.generator_forward_plain(zz, head, blocks, s0, c0)
-            # bf16 activations and image: a flipped rounding moves a pixel
-            err = (got1 - ref1).abs()
-            assert err.max().item() <= 5e-2 and err.mean().item() <= 2e-3
+            torch.cuda.synchronize()
+            assert got1.shape == got2.shape
+            assert_image_close(got1, ref1)
+            assert torch.equal(cuda_gen.generator_forward(g, z[:1]), got1[:1])
         img = np.asarray(got2.cpu())
         assert img.shape == (n, cfg.model.image_size, cfg.model.image_size,
                              cfg.model.channels)
@@ -166,19 +181,69 @@ def test_megakernels_match_plain(cuda, preset, overrides, n):
         assert torch.equal(one, got2[:1])
 
 
+def _seeded_generator(cuda, preset, overrides, seed, batch):
+    """An eval-mode generator of random weights, its BN statistics from one
+    train-mode forward, and a batch of z."""
+    cfg = get_preset(preset).override(overrides)
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    g = build_generator(cfg.model, device=cuda, generator=gen)
+    with torch.no_grad():
+        g.train()
+        g(_rand((max(batch, 8), cfg.model.nz), gen, cuda))
+    return g.eval(), _rand((batch, cfg.model.nz), gen, cuda)
+
+
+# unconditional generators: the 7 x 7 base and a 1-channel image, no BN
+# (Cout 3 at ngf 16), the wide last layer (Cin 160), full width at 64 px
+UNCOND = [("dcgan_mnist", {"model.ngf": 24}, 3),
+          ("dcgan_cifar10", {"model.ngf": 16, "model.g_batchnorm": False}, 5),
+          ("dcgan_cifar10", {"model.ngf": 160, "model.nz": 12}, 3),
+          ("dcgan_celeba64", {}, 9)]
+
+
+@pytest.mark.parametrize("preset,overrides,n", UNCOND)
+def test_megakernel_v1_is_v2_rounded_to_bf16(cuda, preset, overrides, n):
+    """Both megakernels run the same tiles in the same sum order and differ
+    only in the image's epilogue: v1's image is v2's rounded to bf16 (to
+    nearest, ties to even, as torch rounds), bit for bit, and every v1
+    value is a bf16's."""
+    g, z = _seeded_generator(cuda, preset, overrides, 6, n)
+    with torch.no_grad():
+        got1 = cuda_gen.generator_forward(g, z)
+        got2 = cuda_gen2.generator_forward(g, z)
+        torch.cuda.synchronize()
+    assert torch.equal(got1, got1.to(BF).float())
+    assert torch.equal(got1, got2.to(BF).float())
+
+
+def test_megakernel_v1_takes_a_wide_last_layer(cuda):
+    """A last layer of Cout <= 8 whose Cin is more than two 64-channel
+    chunks runs the wide tile (Cout padded to 8 in w), its values rounded
+    to bf16 in registers and written element by element into the (n, S, S,
+    C) image."""
+    g, z = _seeded_generator(cuda, "dcgan_cifar10",
+                             {"model.ngf": 160, "model.nz": 12}, 4, 3)
+    with torch.no_grad():
+        head, blocks, (s0, c0) = cuda_gen.fold_generator(g)
+        assert blocks[-1][0].shape[2] == 160 and blocks[-1][0].shape[3] == 3
+        assert cuda_gen.layer_kinds(s0, c0, [w.shape[3] for w, _, _ in
+                                             blocks])[-1] == cuda_gen.WIDE
+        got = cuda_gen.generator_forward(g, z)
+        ref = cuda_gen.generator_forward_plain(z, head, blocks, s0, c0)
+        one = cuda_gen.generator_forward(g, z[:1])
+        torch.cuda.synchronize()
+    assert got.shape == (3, 32, 32, 3)
+    assert_image_close(got, ref)
+    assert torch.equal(one, got[:1])
+
+
 def test_megakernel_v2_takes_a_wide_last_layer(cuda):
     """A last layer of Cout <= 8 whose Cin is more than two 64-channel
     chunks runs the wide tile (Cout padded to 8 in w), written element by
     element into the phased fp32 image."""
-    cfg = get_preset("dcgan_cifar10").override({"model.ngf": 160,
-                                                "model.nz": 12})
-    gen = torch.Generator(device=cuda).manual_seed(4)
-    g = build_generator(cfg.model, device=cuda, generator=gen)
+    g, z = _seeded_generator(cuda, "dcgan_cifar10",
+                             {"model.ngf": 160, "model.nz": 12}, 4, 3)
     with torch.no_grad():
-        g.train()
-        g(_rand((8, cfg.model.nz), gen, cuda))
-        g.eval()
-        z = _rand((3, cfg.model.nz), gen, cuda)
         head, blocks, (s0, c0), zz = cuda_gen2.fold_inputs(g, z)
         assert blocks[-1][0].shape[2] == 160 and blocks[-1][0].shape[3] == 3
         got = cuda_gen2.generator_forward(g, z)
@@ -190,25 +255,29 @@ def test_megakernel_v2_takes_a_wide_last_layer(cuda):
     assert torch.equal(one, got[:1])
 
 
-def test_megakernel_v2_gives_the_same_bits_repeatedly(cuda):
-    """A missing proxy fence or grid-barrier ordering shows as a stale tile
-    on some runs only: 20 launches of the full-width 64 px generator at
-    batch 64 must agree bit for bit."""
-    cfg = get_preset("dcgan_celeba64")
-    gen = torch.Generator(device=cuda).manual_seed(3)
-    g = build_generator(cfg.model, device=cuda, generator=gen)
+def _launches_agree(cuda, mod):
+    """20 launches of megakernel ``mod`` (cuda_gen or cuda_gen2) on the
+    full-width 64 px generator at batch 64 agree bit for bit."""
+    g, z = _seeded_generator(cuda, "dcgan_celeba64", {}, 3, 64)
     with torch.no_grad():
-        g.train()
-        g(_rand((64, cfg.model.nz), gen, cuda))
-        g.eval()
-        z = _rand((64, cfg.model.nz), gen, cuda)
-        before = cuda_gen2.launches
-        runs = [cuda_gen2.generator_forward(g, z) for _ in range(20)]
+        before = mod.launches
+        runs = [mod.generator_forward(g, z) for _ in range(20)]
         torch.cuda.synchronize()
-    assert cuda_gen2.launches == before + 20
+    assert mod.launches == before + 20
     assert bool(torch.isfinite(runs[0]).all())
     for r in runs[1:]:
         assert torch.equal(r, runs[0])
+
+
+def test_megakernel_v1_gives_the_same_bits_repeatedly(cuda):
+    """As v2's test below, for v1's instantiation of the walk."""
+    _launches_agree(cuda, cuda_gen)
+
+
+def test_megakernel_v2_gives_the_same_bits_repeatedly(cuda):
+    """A missing proxy fence or grid-barrier ordering shows as a stale tile
+    on some runs only: 20 launches must agree bit for bit."""
+    _launches_agree(cuda, cuda_gen2)
 
 
 # (n, h, w, cin, cout): Cin 3 (the narrow path, depth 48) and 16 (narrow,

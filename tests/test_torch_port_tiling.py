@@ -2,17 +2,18 @@
 a grid and the depth split of the conv kernels (the rule that ``make_box``
 in ``csrc/igemm_sm90.cuh`` and ``conv_split_k`` in ``csrc/conv_sm90.cuh``
 implement), the eval-mode conv's narrow / wide / pad rule, and the
-persistent v2 generator kernel's walk (layer -> tiles -> blocks,
-``gen2_plan`` in ``csrc/cuda_gen2.cu``), restated here as the references
-that the ``cuda``-marked tests hold the libraries' plans to on the card;
-and the operand padding the wrappers apply (``kernel_operands``), each
+persistent generator kernels' walk (layer -> tiles -> blocks, ``gen_plan``
+in ``csrc/gen_sm90.cuh``) with both megakernels' image placement, restated
+here as the references that the ``cuda``-marked tests hold the libraries'
+plans to on the card; and the operand padding the wrappers apply (``kernel_operands``), each
 against the plain version."""
 
 import numpy as np
 import pytest
 import torch
 
-from tpugan_torch.ops import cuda_conv, cuda_conv_stats, cuda_convt, cuda_gen2
+from tpugan_torch.ops import (cuda_conv, cuda_conv_stats, cuda_convt, cuda_gen,
+                              cuda_gen2)
 from tpugan_torch.ops.kernel_common import aligned, pad_dim
 
 # kBM of csrc/igemm_sm90.cuh, and an H100 SXM's multiprocessors
@@ -190,7 +191,7 @@ GENS = {
 
 
 def gen2_plan(n, ldz, s0, c0, couts, resident):
-    """The v2 kernel's walk: (grid, [(kind, bn, tiles, steps)]) for the head
+    """The megakernels' walk: (grid, [(kind, bn, tiles, steps)]) for the head
     (kind 0: rows are images, 128 a tile, 64 or 128 columns) and each ConvT
     layer (kind 1, wide: 4 phases x boxes x column tiles, 4 taps x 64-deep
     chunks a tile; kind 2, narrow, Cout <= 8 and Cin <= 128: one box a tile,
@@ -209,6 +210,31 @@ def gen2_plan(n, ldz, s0, c0, couts, resident):
             layers.append((1, bn, 4 * tiles * -(-cout // bn), 4 * kc))
         hs, cin = 2 * hs, cout
     return min(resident, max(layer[2] for layer in layers)), layers
+
+
+def _convt_writes(n, hs, layer, cout, grid, visits):
+    """The outputs of a ConvT layer on an (n, hs, hs) input, tile by tile as
+    the blocks walk them (tile t to block t mod grid): yields index arrays
+    (img, H, W, channel) that broadcast to the tile's elements, and counts
+    each tile's visits."""
+    kind, bn, tiles, _ = layer
+    tiles_n = -(-cout // bn) if kind == 1 else 1
+    boxes = [np.array(rows, np.int64).reshape(-1, 3)
+             for _, rows in _tiles(n, hs, hs)]
+    for blk in range(grid):
+        for t in range(blk, tiles, grid):
+            visits[t] += 1
+            if kind == 2:
+                phases, cols, box = range(4), np.arange(cout), t
+            else:
+                box, rem = divmod(t, 4 * tiles_n)
+                ph, tn = divmod(rem, tiles_n)
+                phases = [ph]
+                cols = np.arange(tn * bn, min(cout, tn * bn + bn))
+            img, i, j = (boxes[box][:, k, None] for k in range(3))
+            for ph in phases:
+                di, dj = divmod(ph, 2)
+                yield img, 2 * i + di, 2 * j + dj, cols[None, :]
 
 
 def _gen2_walk(n, s0, c0, couts, grid, layers):
@@ -230,29 +256,26 @@ def _gen2_walk(n, s0, c0, couts, grid, layers):
             cover[np.ix_(list(rows), list(cols))] += 1
     out.append(cover)
     hs = s0
-    for li, ((kind, bn, tiles, _), cout) in enumerate(zip(layers[1:], couts)):
+    for li, (layer, cout) in enumerate(zip(layers[1:], couts)):
         cover = np.zeros((n, 2 * hs, 2 * hs, cout), np.int32)
-        tiles_n = -(-cout // bn) if kind == 1 else 1
-        boxes = [np.array(rows, np.int64).reshape(-1, 3)
-                 for _, rows in _tiles(n, hs, hs)]
-        for blk in range(grid):
-            for t in range(blk, tiles, grid):
-                visits[li + 1][t] += 1
-                if kind == 2:
-                    phases, cols, box = range(4), np.arange(cout), t
-                else:
-                    box, rem = divmod(t, 4 * tiles_n)
-                    ph, tn = divmod(rem, tiles_n)
-                    phases = [ph]
-                    cols = np.arange(tn * bn, min(cout, tn * bn + bn))
-                img, i, j = (boxes[box][:, k, None] for k in range(3))
-                for ph in phases:
-                    di, dj = divmod(ph, 2)
-                    np.add.at(cover, (img, 2 * i + di, 2 * j + dj,
-                                      cols[None, :]), 1)
+        for index in _convt_writes(n, hs, layer, cout, grid, visits[li + 1]):
+            np.add.at(cover, index, 1)
         out.append(cover)
         hs *= 2
     return out, visits
+
+
+def image_offset(layout, n, s0, log2p, c, img, h, w):
+    """The element offset of image pixel (h, w) of image img, c channels,
+    as the last layer's epilogue places it (``out_pixel`` in
+    ``csrc/gen_sm90.cuh``): "phased", v2's (P, P, n, s0, s0, c) with P =
+    2^log2p and h = b P + o; "nhwc", v1's (n, S, S, c), S = s0 P."""
+    if layout == "nhwc":
+        size = s0 << log2p
+        return ((img * size + h) * size + w) * c
+    p = (1 << log2p) - 1
+    ph = ((h & p) << log2p) + (w & p)
+    return (((ph * n + img) * s0 + (h >> log2p)) * s0 + (w >> log2p)) * c
 
 
 @pytest.mark.parametrize("case", sorted(GENS))
@@ -266,6 +289,25 @@ def test_gen2_walk_covers_every_output_once(case):
             assert (v == 1).all()  # every tile of every layer once
         for c in covers:
             assert (c == 1).all()  # every output element once
+
+
+@pytest.mark.parametrize("layout", ["phased", "nhwc"])
+@pytest.mark.parametrize("case", sorted(GENS))
+def test_image_placement_writes_every_element_once(case, layout):
+    """The last layer's tiles, placed by either megakernel's image layout,
+    write every element of the image once: v2's phased (P, P, n, s0, s0,
+    C) and v1's (n, S, S, C) alike."""
+    n, ldz, s0, c0, couts = GENS[case]
+    grid, layers = gen2_plan(n, ldz, s0, c0, couts, 2 * H100_SMS)
+    nl, cout = len(couts), couts[-1]
+    hs = s0 << (nl - 1)
+    count = np.zeros(n * (2 * hs) ** 2 * cout, np.int64)
+    visits = np.zeros(layers[-1][2], np.int32)
+    for img, h, w, ch in _convt_writes(n, hs, layers[-1], cout, grid, visits):
+        off = image_offset(layout, n, s0, nl, cout, img, h, w) + ch
+        np.add.at(count, off.ravel(), 1)
+    assert (visits == 1).all()
+    assert (count == 1).all()
 
 
 def test_gen2_main_path_fills_the_card():
@@ -298,6 +340,9 @@ def _gen2_operands(rng, nz, s0, c0, chans, cout_last):
     return z, head, blocks
 
 
+@pytest.mark.parametrize("plain", [cuda_gen.generator_forward_plain,
+                                   cuda_gen2.generator_forward_plain],
+                         ids=["v1", "v2"])
 @pytest.mark.parametrize("nz,s0,c0,chans,cout_last,copies", [
     (100, 4, 64, [32, 16], 3, ["z"]),          # the full-width shapes' rule
     (20, 4, 12, [10, 5], 3, ["z", "c0", "inner"]),
@@ -305,14 +350,16 @@ def _gen2_operands(rng, nz, s0, c0, chans, cout_last):
     (16, 2, 200, [], 3, ["last"]),            # Cin 200: a wide last layer
 ])
 def test_gen2_operand_padding_keeps_the_result(nz, s0, c0, chans, cout_last,
-                                               copies):
+                                               copies, plain):
+    """Both megakernels take these operands: each plain version gives the
+    same image on the padded operands as on the folded generator's."""
     z, head, blocks = _gen2_operands(np.random.default_rng(nz + c0), nz, s0,
                                      c0, chans, cout_last)
     couts = [*chans, cout_last]
     kinds = [layer[0] for layer in gen2_plan(3, -(-nz // 8) * 8, s0, c0,
                                              couts, 1)[1][1:]]
-    zb, hb, bb, c0p = cuda_gen2.kernel_operands(z, head, blocks, s0, c0,
-                                                kinds)
+    zb, hb, bb, c0p = cuda_gen.kernel_operands(z, head, blocks, s0, c0,
+                                               kinds)
     assert zb.shape[1] % 8 == 0 and c0p % 8 == 0 and c0p >= c0
     assert ("z" in copies) == (zb.shape[1] != nz)
     assert ("c0" in copies) == (c0p != c0)
@@ -327,11 +374,10 @@ def test_gen2_operand_padding_keeps_the_result(nz, s0, c0, chans, cout_last,
             assert ("last" in copies) == (ldb != cout_last)
     # the kernel meets z's zero columns with TMA's zero fill of wh's rows
     wh = pad_dim(hb[0].float(), 0, zb.shape[1])
-    got = cuda_gen2.generator_forward_plain(
-        zb.float(), (wh, hb[1], hb[2]),
-        [(w.float()[..., :a.shape[0]], a, b) for w, a, b, _ in bb], s0, c0p)
-    ref = cuda_gen2.generator_forward_plain(
-        z.to(torch.bfloat16).float(), head, blocks, s0, c0)
+    got = plain(zb.float(), (wh, hb[1], hb[2]),
+                [(w.float()[..., :a.shape[0]], a, b) for w, a, b, _ in bb],
+                s0, c0p)
+    ref = plain(z.to(torch.bfloat16).float(), head, blocks, s0, c0)
     torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-5)
 
 
@@ -368,19 +414,21 @@ def test_conv_library_plan_follows_the_rule(shape):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("lib", [cuda_gen.V1, cuda_gen.V2])
 @pytest.mark.parametrize("case", sorted(GENS))
-def test_gen2_library_plan_follows_the_rule(case):
-    """The v2 kernel's walk from the library (``tg_gen2_plan``) is
-    ``gen2_plan``, and the card holds 2 of its blocks a SM."""
+def test_gen2_library_plan_follows_the_rule(case, lib):
+    """Each megakernel's walk from its library (``tg_gen_plan``,
+    ``tg_gen2_plan``) is ``gen2_plan``, and the card holds 2 of its blocks a
+    SM."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     n, ldz, s0, c0, couts = GENS[case]
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    resident = cuda_gen2.resident(torch.device("cuda", 0))
+    resident = cuda_gen.resident(torch.device("cuda", 0), lib)
     assert resident == 2 * sms
-    grid, layers = cuda_gen2.plan(n, ldz, s0, c0, couts, resident)
+    grid, layers = cuda_gen.plan(n, ldz, s0, c0, couts, resident, lib)
     assert (grid, layers) == gen2_plan(n, ldz, s0, c0, couts, resident)
-    assert cuda_gen2.layer_kinds(s0, c0, couts) == tuple(
+    assert cuda_gen.layer_kinds(s0, c0, couts, lib) == tuple(
         layer[0] for layer in layers[1:])
 
 

@@ -1,6 +1,6 @@
 // ConvTranspose2d(k=4, s=2, p=1) tiles on the Hopper mainloop, shared by the
-// per-layer kernels (cuda_convt.cu) and the persistent generator kernel
-// (cuda_gen2.cu): the tap tables, the producer's copies of a wide tile (one
+// per-layer kernels (cuda_convt.cu) and the persistent generator walk
+// (gen_sm90.cuh): the tap tables, the producer's copies of a wide tile (one
 // parity phase, one tap x 64 channels a stage), and the four-phase narrow
 // tile for few output channels (its weight in shared memory, its products
 // over the 9 shifted windows, its pixel-major write-out).
@@ -99,12 +99,18 @@ __device__ __forceinline__ void narrow_mma(float (&acc)[4][4], uint64_t da,
   }
 }
 
+// v rounded to the nearest bf16 (ties to even), kept as a float.
+__device__ __forceinline__ float round_bf16(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
 // A narrow tile's epilogue, by the 256 consumer threads: affine + activation
-// of acc into st ([row][phase][8 channels], kNarrowStage bytes), then the
-// tile's output pixels written pixel-major, consecutive threads on
-// consecutive elements; pixel(img, H, W) is the element offset of output
-// pixel (H, W) of image img.
-template <typename OutT, class Pixel>
+// of acc into st ([row][phase][8 channels], kNarrowStage bytes), each value
+// rounded to bf16 first where kRoundBf16 (an fp32 output holding bf16
+// values), then the tile's output pixels written pixel-major, consecutive
+// threads on consecutive elements; pixel(img, H, W) is the element offset of
+// output pixel (H, W) of image img.
+template <typename OutT, bool kRoundBf16 = false, class Pixel>
 __device__ __forceinline__ void narrow_store(
     const float (&acc)[4][4], float* st, const Box& box, int img0, int i0,
     int j0, const float* a, const float* b, int cout, int act, float leak,
@@ -123,7 +129,8 @@ __device__ __forceinline__ void narrow_store(
       const int r = 64 * wg + frag_row(wp, lane, e);
       const float v =
           (e & 1) ? fmaf(acc[p][e], a1, b1) : fmaf(acc[p][e], a0, b0);
-      st[(r * 4 + p) * 8 + c + (e & 1)] = apply_act(v, act, leak);
+      const float o = apply_act(v, act, leak);
+      st[(r * 4 + p) * 8 + c + (e & 1)] = kRoundBf16 ? round_bf16(o) : o;
     }
   named_sync(1, kConsumers);
 

@@ -1,44 +1,43 @@
-// Whole eval-mode generator in one launch, full-resolution NHWC between
-// layers (megakernel v1).
+// Whole eval-mode generator in one persistent launch, the image at full
+// resolution, NHWC, rounded to bf16 (megakernel v1).
 //
 // Replaces: tpugan/ops/pallas_gen.py `_mega_kernel` / `_call`
 // (`generator_forward`, helper `_convt_block`).
 //
-// What bounds it on an H100: one 64 px generator forward at full width is
-// 104.6 M multiply-adds per image (209 MFLOP), on 7 MB of bf16 weights, so
-// at batch 256 (53.6 GFLOP) the bound is bf16 tensor-core throughput, about
-// 54 us at 989 TFLOP/s; the bytes (weights once, z in, image out) take far
-// less.
+// What bounds it on an H100: bf16 tensor-core throughput, 0.054 ms at batch
+// 256, 64 px (gen_sm90.cuh).
 //
-// What the design does about it: one block per image (bt images per block),
-// layers looped inside the block with a barrier between them.  An image's
-// activations do not fit shared memory (32x32x64 bf16 is 128 KiB at 64 px;
-// one 128 px layer is 512 KiB), so they ping-pong through a per-block
-// workspace in global memory (2 x 128 KiB per image at 64 px: 64 MiB for a
-// batch of 256, about the size of the 50 MB L2); shared memory holds only
-// the operand tiles of the WMMA tensor-core tile routine (convt_tile.cuh).
-// One launch replaces one per layer; the cost is that one block runs a
-// whole image, so a batch below the SM count leaves SMs idle, and a layer's
-// four phases run one after another inside the block.
-#include <cuda_runtime.h>
+// What the design does about it: the persistent walk of gen_sm90.cuh that
+// megakernel v2 runs, with one difference, in the last layer's epilogue:
+// each image value is rounded to the nearest bf16 after the tanh (as the
+// TPU kernel rounds its image) and stored as fp32 straight into y (n, S, S,
+// C), the NHWC address the inner layers take.  No depth-to-space, no cast
+// launch.  The activations between layers are bf16 NHWC in both kernels,
+// as the TPU v1 keeps them, so v1's image is v2's, rounded, bit for bit.
+#include "gen_sm90.cuh"
 
-#include "convt_tile.cuh"
+using tg::gen::kNhwcBf16;
 
-namespace {
-
-__global__ void __launch_bounds__(tg::kThreads) gen_kernel(tg::Gen G) {
-  __shared__ __align__(128) unsigned char smem[tg::kSmemBytes];
-  tg::gen_forward(G, 0, smem);
+extern "C" int tg_gen_resident(int* resident) {
+  return tg::gen::gen_resident<kNhwcBf16>(resident);
 }
 
-}  // namespace
+extern "C" void tg_gen_plan(int n, int ldz, int s0, int c0, int n_layers,
+                            const int* couts, int resident, int* out) {
+  tg::gen::gen_plan_out(n, ldz, s0, c0, n_layers, couts, resident, out);
+}
 
-extern "C" int tg_gen_forward(const void* z, int nz, const void* wh,
-                              const float* ah, const float* bh, int s0, int c0,
-                              int n_layers, const void* const* ws,
+// As tg_gen2_forward (gen_sm90.cuh, gen_forward), y (n, S, S, cout) f32.
+extern "C" int tg_gen_forward(const void* z, int nz, int ldz, const void* wh,
+                              const float* ah, const float* bh, int s0,
+                              int c0, int n_layers, const void* const* ws,
                               const float* const* as, const float* const* bs,
-                              const int* couts, void* work, long long ws_elems,
-                              float* y, int n, int bt, void* stream) {
-  return tg::launch_gen(gen_kernel, z, nz, wh, ah, bh, s0, c0, n_layers, ws,
-                        as, bs, couts, work, ws_elems, y, n, bt, stream);
+                              const int* couts, const int* ldbs, void* work,
+                              long long ws_elems, void* sync,
+                              long long* stamps, float* y, int n,
+                              void* stream) {
+  return tg::gen::gen_forward<kNhwcBf16>(z, nz, ldz, wh, ah, bh, s0, c0,
+                                         n_layers, ws, as, bs, couts, ldbs,
+                                         work, ws_elems, sync, stamps, y, n,
+                                         stream);
 }

@@ -1,6 +1,6 @@
 // Hopper (sm_90a) implicit-GEMM mainloop shared by the k4/s2/p1 conv and
 // ConvT kernels (cuda_conv.cu and cuda_conv_stats.cu through conv_sm90.cuh,
-// cuda_convt.cu, and the persistent generator kernel cuda_gen2.cu).
+// cuda_convt.cu, and the persistent generator walk gen_sm90.cuh).
 //
 // A block computes a tile of kBM = 128 rows of an implicit GEMM whose depth
 // is walked in stages of one tap x 64 channels (128-byte rows):

@@ -4,10 +4,10 @@ Each ``csrc/<name>.cu`` compiles with ``nvcc`` for ``sm_90a`` into its own
 shared library with a plain C interface, loaded with ``ctypes``.  A library
 is built once, at first use, into ``tpugan_torch/_build/`` (listed in
 ``.gitignore``), under a name that hashes its sources and flags, so an edit
-rebuilds it.  ``build_all`` starts one ``nvcc`` per source at once.  The
-Hopper kernels (all but megakernel v1, ``cuda_gen``) include
-``csrc/igemm_sm90.cuh``; it needs no library beyond the CUDA runtime (the
-TMA tensor maps are encoded through the runtime's driver entry point).
+rebuilds it.  ``build_all`` starts one ``nvcc`` per source at once.  Every
+kernel runs on the Hopper mainloop of ``csrc/igemm_sm90.cuh``; it needs no
+library beyond the CUDA runtime (the TMA tensor maps are encoded through
+the runtime's driver entry point).
 
 Nothing here runs at import: the CPU tests import every module, and a
 machine without a CUDA toolkit has no ``nvcc``.

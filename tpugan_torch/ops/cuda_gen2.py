@@ -17,37 +17,26 @@ Conditional generators fold the label embedding into z outside the kernel:
 z <- concat(z, embed[y]) feeds the inner generator's (nz + embed_dim)-wide
 dense head.
 
-The CUDA kernel is one persistent, cooperative launch that walks the head
-and the ConvT layers over the whole grid (``csrc/cuda_gen2.cu``); between
-layers it keeps the activations as bf16 NHWC in a workspace, which is the
-same function: the plain version rounds them to bf16 as matmul operands.
-It reads z, wh, the activations and the wide layers' weights by TMA, so
-``kernel_operands`` pads: z's columns to a multiple of 8, c0 and every
-inner layer's Cout to a multiple of 8 (zero weight columns with a zero
-affine, so the extra channels are relu(0) = 0, and zero weight rows in the
-next layer), and a wide last layer's weight columns to a multiple of 8.
-The full-width generators take no copy but z's (nz = 100 -> 104).
+The CUDA kernel is the persistent walk v1 also runs (``csrc/gen_sm90.cuh``;
+its operands, padding and workspace are ``cuda_gen``'s), with the image in
+the phased layout, fp32, unrounded.  Between layers it keeps the
+activations as bf16 NHWC, which is the same function: the plain version
+rounds them to bf16 as matmul operands.
 """
 
 from __future__ import annotations
 
-import ctypes
-import functools
-
 import torch
 import torch.nn.functional as F
 
-from tpugan_torch.ops import _build
-from tpugan_torch.ops.cuda_gen import check_folded, fold_generator, head_plain
-from tpugan_torch.ops.kernel_common import (TAPS, aligned, pad_dim,
-                                            round_up)
+from tpugan_torch.ops import cuda_gen
+from tpugan_torch.ops.cuda_gen import (V2, check_folded, fold_generator,
+                                       head_plain, kernel_operands)
+from tpugan_torch.ops.kernel_common import TAPS
 from tpugan_torch.ops.kernel_common import act as _act
 
 # Kernel launches made by ``generator_forward`` (CUDA tensors only).
 launches = 0
-
-# the kinds of a layer in the library's walk (``plan``)
-HEAD, WIDE, NARROW = 0, 1, 2
 
 
 def _shift_phase(xp, c: int, axis_phase: int, axis_base: int, base: int):
@@ -142,95 +131,20 @@ def fold_inputs(g, z, y=None, eps: float = 1e-5):
     return head, blocks, (s0, c0), z
 
 
-def kernel_operands(z, head, blocks, s0, c0, kinds):
-    """The kernel's operands for a folded generator (module doc): ``(z,
-    head, blocks, c0)`` with z bf16 (n, ldz), head (wh bf16, ah, bh f32),
-    blocks [(w bf16, a f32, b f32, ldb)], c0 padded.  ``kinds``: each ConvT
-    layer's kind in the library's walk (``layer_kinds``); a narrow last
-    layer's weight is read by plain loads, unpadded.  The padding adds zero
-    products and zero channels only."""
-    dev, bf, f32 = z.device, torch.bfloat16, torch.float32
-    wh, ah, bh = head
-    c0p = round_up(c0, 8)
-    if c0p != c0:  # per head pixel: (nz, s0 s0, c0) -> (nz, s0 s0, c0p)
-        wh = pad_dim(wh.reshape(wh.shape[0], s0 * s0, c0), 2, c0p).flatten(1)
-        ah = pad_dim(ah.reshape(s0 * s0, c0), 1, c0p).flatten()
-        bh = pad_dim(bh.reshape(s0 * s0, c0), 1, c0p).flatten()
-    zb = pad_dim(z.to(bf), 1, round_up(z.shape[1], 8)).contiguous()
-    head = (aligned(wh.to(device=dev, dtype=bf).contiguous()),
-            ah.to(device=dev, dtype=f32).contiguous(),
-            bh.to(device=dev, dtype=f32).contiguous())
-    ops, cin = [], c0p
-    for i, (w, a, b) in enumerate(blocks):
-        w = pad_dim(w, 2, cin)
-        cout = w.shape[3]
-        if i < len(blocks) - 1:  # zero weight columns, zero affine
-            ldb = round_up(cout, 8)
-            w, a, b = pad_dim(w, 3, ldb), pad_dim(a, 0, ldb), pad_dim(b, 0, ldb)
-        elif kinds[i] == NARROW:
-            ldb = cout
-        else:
-            ldb = round_up(cout, 8)
-            w = pad_dim(w, 3, ldb)
-        ops.append((aligned(w.to(device=dev, dtype=bf).contiguous()),
-                    a.to(device=dev, dtype=f32).contiguous(),
-                    b.to(device=dev, dtype=f32).contiguous(), ldb))
-        cin = ldb
-    return aligned(zb), head, ops, c0p
-
-
-def _lib():
-    lib = _build.load("cuda_gen2")
-    fn = lib.tg_gen2_forward
-    if fn.argtypes is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, i, i, p, p, p, i, i, i, p, p, p, p, p, p,
-                       ctypes.c_longlong, p, p, p, i, p]
-        fn.restype = ctypes.c_int
-        lib.tg_gen2_plan.argtypes = [i, i, i, i, i, p, i, p]
-        lib.tg_gen2_plan.restype = None
-        lib.tg_gen2_resident.argtypes = [ctypes.POINTER(i)]
-        lib.tg_gen2_resident.restype = ctypes.c_int
-    return lib
-
-
-def _ints(values):
-    return (ctypes.c_int * len(values))(*values)
-
-
 def resident(device) -> int:
-    """Blocks of the kernel the card holds at once: the grid's bound."""
-    out = ctypes.c_int()
-    with torch.cuda.device(device):
-        _build.check(_lib().tg_gen2_resident(ctypes.byref(out)),
-                     "tg_gen2_resident")
-    return out.value
+    """Blocks of the v2 kernel the card holds at once: the grid's bound."""
+    return cuda_gen.resident(device, V2)
 
 
 def plan(n: int, ldz: int, s0: int, c0: int, couts, blocks: int):
-    """The library's walk for n images on a card of ``blocks`` resident
-    blocks: (grid, [(kind, tile columns, tiles, stages a tile) for the head
-    and each ConvT layer]), kind HEAD, WIDE or NARROW."""
-    nl = len(couts)
-    out = (ctypes.c_int * (1 + 4 * (nl + 1)))()
-    _lib().tg_gen2_plan(n, ldz, s0, c0, nl, ctypes.cast(_ints(couts),
-                                                        ctypes.c_void_p),
-                        blocks, ctypes.cast(out, ctypes.c_void_p))
-    return out[0], [tuple(out[1 + 4 * l:5 + 4 * l]) for l in range(nl + 1)]
-
-
-@functools.lru_cache(maxsize=None)
-def _kinds(s0: int, c0: int, couts: tuple) -> tuple:
-    # n, z's width and the grid set no layer's kind
-    return tuple(layer[0] for layer in plan(1, 8, s0, c0, couts, 1)[1][1:])
+    """The v2 library's walk (``cuda_gen.plan``)."""
+    return cuda_gen.plan(n, ldz, s0, c0, couts, blocks, V2)
 
 
 def layer_kinds(s0: int, c0: int, couts) -> tuple:
-    """Each ConvT layer's kind (WIDE or NARROW) in the library's walk (once
-    a shape).  The padding of ``kernel_operands`` leaves every kind as it
-    is: a layer is narrow by its Cout (<= 8) and its Cin's 64-channel
-    chunks."""
-    return _kinds(s0, c0, tuple(couts))
+    """Each ConvT layer's kind in the v2 library's walk
+    (``cuda_gen.layer_kinds``)."""
+    return cuda_gen.layer_kinds(s0, c0, couts, V2)
 
 
 def launch(z, head, blocks, s0, c0, stamps=None):
@@ -241,35 +155,10 @@ def launch(z, head, blocks, s0, c0, stamps=None):
     tiles of the head and of each ConvT layer and as it leaves that layer's
     grid barrier; the library then launches the kernel's stamped
     instantiation, not the serving one."""
-    dev = z.device
-    n, ldz = z.shape
-    wh, ah, bh = head
-    couts = [a.shape[0] for _, a, _, _ in blocks]
-    # the largest activation of one image the workspace holds: the head
-    # output and every layer output but the last, which goes to y
-    elems, hs = s0 * s0 * c0, s0
-    for c in couts[:-1]:
-        hs *= 2
-        elems = max(elems, hs * hs * c)
-    work = torch.empty(2 * n * elems, dtype=torch.bfloat16, device=dev)
-    sync = torch.empty(1, dtype=torch.int32, device=dev)
     p = 2 ** len(blocks)
-    y = torch.empty((p, p, n, s0, s0, couts[-1]), dtype=torch.float32,
-                    device=dev)
-    nl = len(blocks)
-    ptrs = lambda k: (ctypes.c_void_p * nl)(  # noqa: E731
-        *[blk[k].data_ptr() for blk in blocks])
-    addr = lambda arr: ctypes.cast(arr, ctypes.c_void_p)  # noqa: E731
-    with torch.cuda.device(dev):
-        rc = _lib().tg_gen2_forward(
-            z.data_ptr(), wh.shape[0], ldz, wh.data_ptr(), ah.data_ptr(),
-            bh.data_ptr(), s0, c0, nl, addr(ptrs(0)), addr(ptrs(1)),
-            addr(ptrs(2)), addr(_ints(couts)),
-            addr(_ints([blk[3] for blk in blocks])), work.data_ptr(), elems,
-            sync.data_ptr(), None if stamps is None else stamps.data_ptr(),
-            y.data_ptr(), n, _build.stream_ptr(dev.index))
-    _build.check(rc, "tg_gen2_forward")
-    return y
+    y = torch.empty((p, p, z.shape[0], s0, s0, blocks[-1][1].shape[0]),
+                    dtype=torch.float32, device=z.device)
+    return cuda_gen.run(V2, z, head, blocks, s0, c0, y, stamps)
 
 
 def generator_forward(g, z, y=None, *, eps: float = 1e-5):

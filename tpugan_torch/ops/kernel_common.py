@@ -1,9 +1,8 @@
 """Shared pieces of the kernel family: the transpose-conv tap table and the
 activation epilogue, one definition each (port of
 ``tpugan/ops/kernel_common.py``), and the operand padding the TMA kernels'
-wrappers apply.  ``csrc/convt_tile.cuh`` and ``csrc/convt_sm90.cuh`` carry
-the same table, and ``csrc/igemm_sm90.cuh`` the same activation codes, for
-the CUDA side.
+wrappers apply.  ``csrc/convt_sm90.cuh`` carries the same table, and
+``csrc/igemm_sm90.cuh`` the same activation codes, for the CUDA side.
 """
 
 from __future__ import annotations
