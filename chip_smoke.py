@@ -17,6 +17,10 @@ Phases, each of which fails the run (no exception is caught):
    BN-statistics kernel's depth split against its alternatives, and where
    a megakernel launch's device time goes, layer by layer, from its
    blocks' clocks; v1's image must be v2's rounded to bf16, bit for bit;
+   v2 also at 128 px, conditional at 64 px and at 32 px (the
+   ``sngan_cifar10`` generator's grid); kernel 4 also at the new paths'
+   shapes: the conditional D's first layer (Cin 4, the narrow path) and the
+   spectrally normalized 32 px D's three layers on W / sigma;
 3. drive the main path at full width (``dcgan_celeba64``: nz=100, ngf=64,
    random weights from a seeded ``torch.Generator``, BN running stats from a
    few train-mode forwards): ``Sampler.sample(256)`` under
@@ -38,14 +42,33 @@ Phases, each of which fails the run (no exception is caught):
    share of a step;
 6. score a real and a generated batch with the trained D in eval mode under
    ``set_default_impl("pallas")`` (one fused conv kernel per block) against
-   the "xla" impl.
+   the "xla" impl;
+7. SNGAN: ``Trainer`` on full-width ``sngan_cifar10`` (32 px, batch 128,
+   hinge loss, spectral norm in D): finite losses, every spectral-norm
+   ``u`` moved (the tail's one-entry ``u`` stays +-1) and unit-norm, ms per
+   step, a grid from megakernel v2; then the trained D in eval mode under
+   "pallas" (3 kernel-4 launches a forward, on W / sigma) against "xla",
+   with every ``u`` bit for bit unchanged;
+8. WGAN-GP: ``Trainer`` on full-width ``wgan_gp_cifar10`` for 2 x n_critic
+   steps (and timed steps) with ``set_default_impl("pallas")`` for the
+   whole run: no kernel-4 launch in the train steps (the penalty's D runs
+   on PyTorch's ops), ``gp`` finite and > 0 at every step, ``loss_g``
+   logged on the G steps only;
+9. conditional: ``Trainer`` on full-width ``cdcgan_celeba64`` with
+   fuse_stats on and off from one seed (step 1's losses within phase 5's
+   bound; ms per step in turns), 9 conv + BN-stats launches a step, a
+   conditional grid from v2; then the eval-mode D under "pallas" (4
+   kernel-4 launches a forward, the first on the narrow path: the image and
+   its label plane, Cin 4) against "xla".
 
-Phases 3-4, 5 and 6 are the three paths: each zeroes the launch counters
-just before it and reads them just after, and every kernel must have
-launched on its path.  The last lines are the ``kernels`` JSON, the card's
-name and power limit, and ``{"ok": true, "device": {...}}``.  Exits
-non-zero without a CUDA device or without the ``tpugan_torch`` package
-beside this file.
+Phases 3-4, 5, 6, 7 (train, eval D), 8 and 9 (train, eval D) are the
+paths: each zeroes the launch counters just before it and reads them just
+after, and every kernel it names must have launched.  Each kernel's
+``launches`` in the ``kernels`` line sums its paths' counts, and
+``launches_by_path`` lists them.  The last lines are the ``kernels`` JSON,
+the card's name and power limit, and ``{"ok": true, "device": {...}}``.
+Exits non-zero without a CUDA device or without the ``tpugan_torch``
+package beside this file.
 
     python3 chip_smoke.py --against DIR
 
@@ -275,6 +298,106 @@ def includes(src: str) -> list[str]:
     return [f"tpugan_torch/csrc/{name}" for name in seen]
 
 
+def conv_case(x, wb, a, b, **extra) -> tuple[dict, object]:
+    """Kernel 4 (``cuda_conv.conv_affine_act``, LeakyReLU epilogue) on one
+    layer's bf16 input ``x`` and weight ``wb`` against its plain version,
+    bf16 out (``bf16_err``) and the bare conv's fp32 sums (``fp32_err``):
+    the case's times beside ``F.conv2d`` + affine + LeakyReLU, its bound,
+    path and split; returns (case, the plain bf16 output)."""
+    import torch
+    import torch.nn.functional as F
+
+    from tpugan_torch.ops import cuda_conv
+
+    cout = wb.shape[3]
+    got = cuda_conv.conv_affine_act(x, wb, a, b, act="leaky_relu")
+    ref = cuda_conv.conv_affine_act_plain(x, wb, a, b, act="leaky_relu")
+    # the bare conv's fp32 output: the sums themselves, unrounded
+    got32 = cuda_conv.conv2d(x, wb)
+    ref32 = cuda_conv.conv421_plain(x, wb)
+    torch.cuda.synchronize()
+    err, ok = bf16_err(got, ref)
+    err32, ok32 = fp32_err(got32, ref32)
+    n, h, wd, cin = x.shape
+    shape = f"{n}x{h}x{wd}x{cin}->{h // 2}x{wd // 2}x{cout}"
+    require(ok and ok32,
+            f"conv {shape}: max err {err} (bf16 out, largest value "
+            f"{ref.float().abs().max().item()}), {err32} (fp32 out, largest "
+            f"value {ref32.abs().max().item()})")
+    xl = x.permute(0, 3, 1, 2)  # NHWC storage = channels_last NCHW
+    wl = wb.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+
+    def library():
+        y = F.conv2d(xl, wl, stride=2, padding=1)
+        return F.leaky_relu(y * a.view(1, -1, 1, 1) + b.view(1, -1, 1, 1),
+                            0.2)
+
+    flops, byt = conv_work(x, wb, nbytes(a, b, got))
+    bms, by = bound_ms(flops, byt)
+    path, _, splits = cuda_conv.plan(x, cout)
+    c = dict(**extra, shape=shape, path=path, splits=splits,
+             **timed(lambda: cuda_conv.conv_affine_act(x, wb, a, b),
+                     library),
+             plain_ms=time_ms(lambda: cuda_conv.conv_affine_act_plain(
+                 x, wb, a, b), 5),
+             bound_ms=bms, bound_by=by, flops=flops, bytes=byt,
+             max_abs_err=err, scale=ref.float().abs().max().item(),
+             fp32_max_abs_err=err32, fp32_scale=ref32.abs().max().item())
+    log(f"[kernel] conv_affine_act {json.dumps(c)}")
+    log(f"[kernel] conv_affine_act {shape}: {rate(c)}")
+    return c, ref
+
+
+def run_steps(tr, n: int, data: dict, metrics: list | None = None) -> float:
+    """ms per step of n train steps of Trainer ``tr`` fed by the input
+    pipeline, as the Trainer runs them (logging and grids aside), by CUDA
+    events; each step's metrics go to ``metrics``."""
+    from tpugan_torch.data.pipeline import make_input_pipeline
+
+    cfg = tr.cfg
+    it = iter(make_input_pipeline(data, cfg.data.batch_size,
+                                  seed=cfg.train.seed,
+                                  with_labels=cfg.model.arch == "cdcgan",
+                                  device=tr.device,
+                                  start_step=tr.state.step))
+    batches = [next(it)]  # the pipeline's prefetch, as in steady state
+
+    def body():
+        for i in range(n):
+            tr.state, m = tr.step_fn(tr.state, batches[i])
+            if metrics is not None:
+                metrics.append(m)
+            if i + 1 < n:
+                batches.append(next(it))
+
+    ms = events_ms(body) / n
+    it.close()
+    return ms
+
+
+def profile_steps(tr, n: int, data: dict, metrics: list, label: str,
+                  top: int = 12) -> None:
+    """Where a step's time goes: n steps of ``tr`` under ``torch.profiler``,
+    the device time by kernel and the device's busy share of a step (the
+    rest is the host's)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        prof_ms = run_steps(tr, n, data, metrics)
+    # kernel rows only: an operator's row repeats its kernels' device time
+    kern = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in kern) / 1e3 / n
+    log(f"[profile] {label}: {prof_ms:.4f} ms/step under the profiler, "
+        f"device busy {busy:.4f} ms/step ({100 * busy / prof_ms:.1f}%), "
+        f"{sum(e.count for e in kern) / n:.0f} kernels/step")
+    for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:top]:
+        log(f"[profile]   {e.self_device_time_total / 1e3 / n:8.4f} ms/step "
+            f"{e.count / n:6.1f}/step  {e.key[:90]}")
+
+
 def gen_work(z, head, blocks, s0, c0, out_elems):
     """(flops, bytes) of one megakernel call: the head and every ConvT
     layer's multiply-adds; z, weights, affines read once, the fp32 image
@@ -396,7 +519,6 @@ def main() -> int:
 
     from tpugan_torch.configs import get_preset
     from tpugan_torch.data.datasets import load_dataset
-    from tpugan_torch.data.pipeline import make_input_pipeline
     from tpugan_torch.models.registry import build_discriminator
     from tpugan_torch.ops import (_build, convs, cuda_conv, cuda_conv_stats,
                                   cuda_convt, cuda_gen, cuda_gen2)
@@ -411,6 +533,18 @@ def main() -> int:
     def zero_counts():
         for mod in kernel_mods:
             mod.launches = 0
+
+    # each path's launches by kernel: counted from zero, read after it
+    path_counts = {}
+
+    def read_counts(path: str) -> dict:
+        counts = {"convt_affine_act": cuda_convt.launches,
+                  "v1": cuda_gen.launches, "v2": cuda_gen2.launches,
+                  "conv_affine_act": cuda_conv.launches,
+                  "conv_stats": cuda_conv_stats.launches}
+        path_counts[path] = counts
+        log(f"[paths] launches on {path}: {counts}")
+        return counts
 
     # the plain versions are the references: full fp32 matmuls and convs
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -611,12 +745,19 @@ def main() -> int:
         yc = torch.arange(BATCH, device=dev) % ccfg.model.n_classes
         cond64 = check_gen("cdcgan_celeba64 64px b256", gc, z, yc, ["v2"])
         del gc
+        # the 32 px generator of sngan_cifar10 / wgan_gp_cifar10 (three
+        # ConvT layers) at the Trainer's grid size
+        _, g32 = make_generator("sngan_cifar10", dev)
+        z32 = torch.from_numpy(seeded_noise(100, 64, seed=2)).to(dev)
+        c32 = check_gen("sngan_cifar10 32px b64", g32, z32, None, ["v2"])
+        del g32
     for key, mod, line, src in (
             ("v1", cuda_gen, "tpugan/ops/pallas_gen.py:194", "cuda_gen.cu"),
             ("v2", cuda_gen2, "tpugan/ops/pallas_gen2.py:209",
              "cuda_gen2.cu")):
         m = main64[key]
-        extra = [c128[key]] + ([cond64["v2"]] if key == "v2" else [])
+        extra = [c128[key]] + ([cond64["v2"], c32["v2"]] if key == "v2"
+                               else [])
         report[key] = dict(
             name=f"{mod.__name__.rsplit('.', 1)[1]}.generator_forward",
             route="cuda", source=f"tpugan_torch/csrc/{src}", replaces=line,
@@ -657,45 +798,14 @@ def main() -> int:
                                  blk.bn.var, blk.bn.eps)
             else:
                 a, b = torch.ones(cout, device=dev), blk.conv.b.float()
-            got = cuda_conv.conv_affine_act(x, wb, a, b, act="leaky_relu")
-            ref = cuda_conv.conv_affine_act_plain(x, wb, a, b,
-                                                  act="leaky_relu")
-            # the bare conv's fp32 output: the sums themselves, unrounded
-            got32 = cuda_conv.conv2d(x, wb)
-            ref32 = cuda_conv.conv421_plain(x, wb)
-            torch.cuda.synchronize()
-            err, ok = bf16_err(got, ref)
-            err32, ok32 = fp32_err(got32, ref32)
-            require(ok and ok32,
-                    f"conv layer {i}: max err {err} (bf16 out, largest value "
-                    f"{ref.float().abs().max().item()}), {err32} (fp32 out, "
-                    f"largest value {ref32.abs().max().item()})")
+            c, ref = conv_case(x, wb, a, b, model="dcgan_celeba64",
+                               layer=i)
+            conv_cases.append(c)
+            n, h, wd, cin = x.shape
+            shape = c["shape"]
             xl = x.permute(0, 3, 1, 2)  # NHWC storage = channels_last NCHW
             wl = wb.permute(3, 2, 0, 1).contiguous(
                 memory_format=torch.channels_last)
-
-            def library(xl=xl, wl=wl, a=a, b=b):
-                y = F.conv2d(xl, wl, stride=2, padding=1)
-                return F.leaky_relu(y * a.view(1, -1, 1, 1)
-                                    + b.view(1, -1, 1, 1), 0.2)
-
-            flops, byt = conv_work(x, wb, nbytes(a, b, got))
-            bms, by = bound_ms(flops, byt)
-            n, h, wd, cin = x.shape
-            shape = f"{n}x{h}x{wd}x{cin}->{h // 2}x{wd // 2}x{cout}"
-            path, _, splits = cuda_conv.plan(x, cout)
-            c = dict(shape=shape, path=path, splits=splits,
-                     **timed(lambda: cuda_conv.conv_affine_act(x, wb, a, b),
-                             library),
-                plain_ms=time_ms(lambda: cuda_conv.conv_affine_act_plain(
-                    x, wb, a, b), 5),
-                bound_ms=bms, bound_by=by,
-                flops=flops, bytes=byt, max_abs_err=err,
-                scale=ref.float().abs().max().item(), fp32_max_abs_err=err32,
-                fp32_scale=ref32.abs().max().item())
-            conv_cases.append(c)
-            log(f"[kernel] conv_affine_act {json.dumps(c)}")
-            log(f"[kernel] conv_affine_act {shape}: {rate(c)}")
             if blk.bn is not None:
                 y, mean, var = cuda_conv_stats.conv_stats(x, wb)
                 yr, mr, vr = cuda_conv_stats.conv_stats_plain(x, wb)
@@ -739,6 +849,47 @@ def main() -> int:
                 log(f"[kernel] conv_stats {shape}: {rate(c)}; depth split "
                     f"{c['splits']}, ms by split {c['split_ms']}")
             x = ref
+    # the new paths' kernel-4 shapes: the conditional D's first layer (the
+    # image and its label plane, Cin 4: the narrow path) at 64 px, and the
+    # spectrally normalized 32 px D's three layers on W / sigma (sigma from
+    # a u that two train-mode forwards moved), batch 128, on synthetic
+    # images and seeded D's own activations
+    data32 = load_dataset("synthetic", image_size=32, channels=3,
+                          synthetic_size=10 * TRAIN_BATCH,
+                          seed=tcfg.train.seed)
+    real32 = torch.from_numpy(data32["images"][:TRAIN_BATCH]).to(dev)
+    real32 = (real32.float() / 127.5 - 1.0).to(bf)
+    new_conv_cases = []
+    with torch.no_grad():
+        cd0 = build_discriminator(
+            get_preset("cdcgan_celeba64").model, device=dev,
+            generator=torch.Generator(device=dev).manual_seed(1)).eval()
+        y0 = torch.arange(TRAIN_BATCH, device=dev) % 2
+        plane = cd0.proj(cd0.embed(y0)).reshape(-1, 64, 64, 1)
+        x4 = torch.cat([real, plane.to(bf)], dim=-1)
+        c4 = cd0.d.blocks[0].conv
+        c, _ = conv_case(x4, c4.w.to(bf).contiguous(),
+                         torch.ones(c4.cout, device=dev), c4.b.float(),
+                         model="cdcgan_celeba64", layer=0)
+        require(c["path"] == "narrow",
+                f"the Cin 4 layer runs the {c['path']} path, not narrow")
+        new_conv_cases.append(c)
+        sd0 = build_discriminator(
+            get_preset("sngan_cifar10").model, device=dev,
+            generator=torch.Generator(device=dev).manual_seed(1))
+        sd0.train()
+        for _ in range(2):  # u moves: sigma is the one a trained D uses
+            sd0(real32)
+        sd0.eval()
+        x = real32
+        for i, blk in enumerate(sd0.blocks):
+            conv = blk.conv
+            c, x = conv_case(x, conv.weight().to(bf).contiguous(),
+                             torch.ones(conv.cout, device=dev),
+                             conv.b.float(), model="sngan_cifar10", layer=i,
+                             spectral_norm=True)
+            new_conv_cases.append(c)
+        del cd0, sd0
     for key, cases, line, src in (
             ("conv_affine_act", conv_cases, "tpugan/ops/pallas_conv.py:86",
              "cuda_conv.cu"),
@@ -755,6 +906,8 @@ def main() -> int:
             bound_by=bound_ms(tot["flops"], tot["bytes"])[1],
             library_ms=tot["library_ms"],
             library_device_ms=tot["library_device_ms"], cases=cases)
+    # the totals stay dcgan_celeba64's four layers; the new shapes are cases
+    report["conv_affine_act"]["cases"] += new_conv_cases
 
     # conv_bn_stats's backward (PyTorch's conv gradients of the unfused VJP)
     # against autograd through the plain composition, at the first BN
@@ -876,12 +1029,9 @@ def main() -> int:
         srv.server_close()
         engine.close()
 
-    counts = {"convt_affine_act": cuda_convt.launches, "v1": cuda_gen.launches,
-              "v2": cuda_gen2.launches}
-    log(f"[main] launches on the serving path: {counts}")
-    for key, n in counts.items():
-        require(n > 0, f"{key} never launched on the serving path")
-        report[key]["launches"] = n
+    counts = read_counts("serving dcgan_celeba64")
+    for key in ("convt_affine_act", "v1", "v2"):
+        require(counts[key] > 0, f"{key} never launched on the serving path")
 
     # warm serving, after the serving path's launches are counted (these
     # calls are measurements'): Sampler.sample(256) by CUDA events over
@@ -969,46 +1119,12 @@ def main() -> int:
     warm = [t.train(3) for t in (t_on, t_off)]  # each ends with a grid
     step_metrics = []
 
-    def run_steps(tr, n):
-        """ms per step of n train steps fed by the input pipeline, as the
-        Trainer runs them (logging and grids aside)."""
-        it = iter(make_input_pipeline(train_data, TRAIN_BATCH,
-                                      seed=tcfg.train.seed,
-                                      with_labels=False, device=dev,
-                                      start_step=tr.state.step))
-        batches = [next(it)]  # the pipeline's prefetch, as in steady state
-
-        def body():
-            for i in range(n):
-                tr.state, m = tr.step_fn(tr.state, batches[i])
-                step_metrics.append(m)
-                if i + 1 < n:
-                    batches.append(next(it))
-
-        ms = events_ms(body) / n
-        it.close()
-        return ms
-
     times = {"on": [], "off": []}
     for mode in ("off", "on", "on", "off"):  # in turns, on one card
-        times[mode].append(run_steps(t_on if mode == "on" else t_off, 10))
-    # where a fused step's time goes: device time by kernel, and the
-    # device's busy share of the step (the rest is the host's)
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        prof_ms = run_steps(t_on, 5)
-    # kernel rows only: an operator's row repeats its kernels' device time
-    kern = [e for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy = sum(e.self_device_time_total for e in kern) / 1e3 / 5
-    log(f"[profile] fuse_stats=on: {prof_ms:.4f} ms/step under the profiler,"
-        f" device busy {busy:.4f} ms/step ({100 * busy / prof_ms:.1f}%), "
-        f"{sum(e.count for e in kern) / 5:.0f} kernels/step")
-    for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:12]:
-        log(f"[profile]   {e.self_device_time_total / 1e3 / 5:8.4f} ms/step "
-            f"{e.count / 5:6.1f}/step  {e.key[:90]}")
+        times[mode].append(run_steps(t_on if mode == "on" else t_off, 10,
+                                     train_data, step_metrics))
+    profile_steps(t_on, 5, train_data, step_metrics,
+                  "dcgan_celeba64 fuse_stats=on")
     k_draw = threefry.split(t_on.state.rng, 8)[1]
     t0 = time.perf_counter()
     for _ in range(10):
@@ -1031,7 +1147,7 @@ def main() -> int:
             f"{cuda_conv_stats.launches} conv_stats launches in "
             f"{t_on.state.step} steps, not 9 a step")
     require(cuda_gen2.launches > 0, "no sample grid on the train path")
-    report["conv_stats"]["launches"] = cuda_conv_stats.launches
+    read_counts("train dcgan_celeba64")
     for mode in ("on", "off"):
         ms = sum(times[mode]) / len(times[mode])
         log(f"[train] fuse_stats={mode}: {ms:.4f} ms/step "
@@ -1039,36 +1155,222 @@ def main() -> int:
             f"{', '.join(f'{t:.4f}' for t in times[mode])} ms/step)")
 
     # -- 6. the trained D in eval mode, with the launch counters from zero ---
+    def eval_scores(d, inputs, n_blocks, path):
+        """Score each (label, D's arguments) of ``inputs`` with the eval-mode
+        D ``d`` under the "pallas" impl (one kernel-4 launch a block) and
+        the "xla" impl; the logits must agree.  Counters from zero."""
+        zero_counts()
+        d.eval()
+        scores = {}
+        with torch.no_grad():
+            for impl in ("pallas", "xla"):
+                convs.set_default_impl(impl)
+                try:
+                    scores[impl] = [d(*args).float() for _, args in inputs]
+                finally:
+                    convs.set_default_impl("xla")
+        log(f"[eval] {path}: conv launches: {cuda_conv.launches} for "
+            f"{len(inputs)} D forwards")
+        require(cuda_conv.launches == len(inputs) * n_blocks,
+                f"{cuda_conv.launches} conv launches, not one per block")
+        read_counts(path)
+        for i, (label, _) in enumerate(inputs):
+            got, ref = scores["pallas"][i], scores["xla"][i]
+            err = (got - ref).abs()
+            log(f"[eval] {path} D({label}) pallas vs xla: max "
+                f"{err.max().item():.3e}, mean logit {ref.mean().item():.4f}")
+            require(bool(torch.isfinite(got).all()), f"D({label}) non-finite")
+            # each block rounds to bf16 at other places (2^-8 relative): the
+            # fused kernel rounds once after BN and LeakyReLU, the "xla"
+            # impl after the conv, after BN and after the activation
+            require(bool((err <= 3e-2 * (1 + ref.abs())).all()),
+                    f"D({label}): pallas and xla disagree by "
+                    f"{err.max().item()}")
+
     zero_counts()
-    d = t_on.d.eval()
     fake = torch.from_numpy(Sampler(tcfg, t_on.g).sample(TRAIN_BATCH, seed=1)
                             ).to(dev)
-    scores = {}
-    with torch.no_grad():
-        for impl in ("pallas", "xla"):
-            convs.set_default_impl(impl)
-            scores[impl] = [d(x).float() for x in (real, fake)]
-    convs.set_default_impl("xla")
-    log(f"[eval] conv launches: {cuda_conv.launches} for 2 D forwards")
-    require(cuda_conv.launches == 2 * len(d.blocks),
-            f"{cuda_conv.launches} conv launches, not one per block")
-    report["conv_affine_act"]["launches"] = cuda_conv.launches
-    for i, label in enumerate(("real", "generated")):
-        got, ref = scores["pallas"][i], scores["xla"][i]
-        err = (got - ref).abs()
-        log(f"[eval] D({label}) pallas vs xla: max {err.max().item():.3e}, "
-            f"mean logit {ref.mean().item():.4f}")
-        require(bool(torch.isfinite(got).all()), f"D({label}) non-finite")
-        # each block rounds to bf16 at other places (2^-8 relative): the
-        # fused kernel rounds once after BN and LeakyReLU, the "xla" impl
-        # after the conv, after BN and after the activation
-        require(bool((err <= 3e-2 * (1 + ref.abs())).all()),
-                f"D({label}): pallas and xla disagree by {err.max().item()}")
+    eval_scores(t_on.d, [("real", (real,)), ("generated", (fake,))],
+                len(t_on.d.blocks), "eval D dcgan_celeba64")
 
-    # -- 7. report ----------------------------------------------------------
-    order = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-             "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
-             "library_ms", "library_device_ms", "cases")
+    def slice_cfg(preset: str, run: str, **over):
+        """``preset`` at its full width on the synthetic dataset, as phase
+        5 runs dcgan_celeba64: no checkpoints, grids by megakernel v2,
+        every step logged to chiprun_out/smoke_RUN."""
+        return get_preset(preset).override({
+            "data.dataset": "synthetic",
+            "data.synthetic_size": 10 * TRAIN_BATCH,
+            "train.ckpt_every": 0, "train.kernels": "pallas",
+            "train.log_every": 1,
+            "train.out_dir": str(ROOT / "chiprun_out" / f"smoke_{run}"),
+            **{f"train.{k}": v for k, v in over.items()}})
+
+    def logged(cfg) -> list:
+        with open(Path(cfg.train.out_dir) / "metrics.jsonl") as f:
+            return [json.loads(line) for line in f]
+
+    def finite(metrics: list, what: str) -> None:
+        require(bool(torch.isfinite(torch.stack(
+            [v for m in metrics for v in m.values()])).all()),
+            f"non-finite step metrics in {what}")
+
+    # -- 7. SNGAN: sngan_cifar10 at full width, then its D in eval mode -----
+    zero_counts()
+    scfg = slice_cfg("sngan_cifar10", "sngan", sample_every=4)
+    require(scfg.model.nz == 100 and scfg.model.ngf == 64
+            and scfg.model.ndf == 64 and scfg.data.batch_size == TRAIN_BATCH
+            and scfg.model.d_spectral_norm and not scfg.model.d_batchnorm
+            and scfg.loss.kind == "hinge" and scfg.loss.n_critic == 1,
+            "not the full-width sngan_cifar10 configuration")
+    ts = Trainer(scfg, data=data32, device=dev)
+    us0 = {k: v.clone() for k, v in ts.d.state_dict().items()
+           if k.endswith(".u")}
+    require(len(us0) == len(ts.d.blocks) + 1, f"u buffers: {sorted(us0)}")
+    sn_logged = ts.train(4)  # a grid after step 4
+    sn_metrics = []
+    sn_ms = [run_steps(ts, 10, data32, sn_metrics) for _ in range(2)]
+    profile_steps(ts, 5, data32, sn_metrics, "sngan_cifar10", top=8)
+    require(all(np.isfinite(v) for v in sn_logged.values()),
+            f"non-finite logged metrics {sn_logged}")
+    finite(sn_metrics, "sngan_cifar10")
+    for k, u0 in us0.items():
+        # the tail's u has one entry: a unit vector in R^1 stays +-1
+        u = ts.d.state_dict()[k]
+        require(u.numel() == 1 or not torch.equal(u, u0),
+                f"{k} did not move in training")
+        require(abs(u.norm().item() - 1.0) <= 1e-5,
+                f"{k}: |u| = {u.norm().item()}, not 1")
+    counts = read_counts("train sngan_cifar10")
+    require(counts["v2"] > 0, "no sample grid on the sngan train path")
+    require(counts["conv_affine_act"] == 0 and counts["conv_stats"] == 0,
+            "a D kernel launched in the sngan train steps")
+    log(f"[sngan] {ts.state.step} steps; ms/step {sn_ms} "
+        f"({TRAIN_BATCH * 1e3 / (sum(sn_ms) / len(sn_ms)):.1f} images/s); "
+        f"last logged {sn_logged}")
+    us1 = {k: ts.d.state_dict()[k].clone() for k in us0}
+    fake32 = torch.from_numpy(Sampler(scfg, ts.g).sample(TRAIN_BATCH, seed=1)
+                              ).to(dev)
+    eval_scores(ts.d, [("real", (real32,)), ("generated", (fake32,))],
+                len(ts.d.blocks), "eval D sngan_cifar10")
+    for k, u in us1.items():
+        require(torch.equal(ts.d.state_dict()[k], u),
+                f"{k} moved in an eval-mode forward")
+    del ts
+
+    # -- 8. WGAN-GP: wgan_gp_cifar10 at full width under the "pallas" impl --
+    zero_counts()
+    wcfg = slice_cfg("wgan_gp_cifar10", "wgan_gp", sample_every=10)
+    require(wcfg.model.nz == 100 and wcfg.model.ndf == 64
+            and wcfg.data.batch_size == TRAIN_BATCH
+            and wcfg.loss.kind == "wgan_gp" and wcfg.loss.lambda_gp == 10.0
+            and wcfg.loss.n_critic == 5 and not wcfg.model.d_batchnorm
+            and wcfg.optim.lr_d == 1e-4 and wcfg.optim.beta2 == 0.9,
+            "not the full-width wgan_gp_cifar10 configuration")
+    n_critic = wcfg.loss.n_critic
+    # the whole run under "pallas": a penalty D that reached kernel 4
+    # (forward-only) would raise
+    convs.set_default_impl("pallas")
+    try:
+        tw = Trainer(wcfg, data=data32, device=dev)
+        tw.train(2 * n_critic)
+        wgp_metrics = []
+        wgp_ms = [run_steps(tw, 2 * n_critic, data32, wgp_metrics)
+                  for _ in range(2)]
+        profile_steps(tw, n_critic, data32, wgp_metrics, "wgan_gp_cifar10",
+                      top=8)
+    finally:
+        convs.set_default_impl("xla")
+    counts = read_counts("train wgan_gp_cifar10")
+    require(counts["conv_affine_act"] == 0,
+            f"{counts['conv_affine_act']} kernel-4 launches in the WGAN-GP "
+            f"train steps")
+    require(counts["v2"] > 0, "no sample grid on the wgan_gp train path")
+    finite(wgp_metrics, "wgan_gp_cifar10")
+    rows = logged(wcfg)[-2 * n_critic:]
+    require([r["step"] for r in rows] == list(range(1, 2 * n_critic + 1)),
+            f"logged steps {[r['step'] for r in rows]}")
+    for r in rows:
+        require(np.isfinite(r["gp"]) and r["gp"] > 0, f"gp {r}")
+        g_step = r["step"] % n_critic == 0
+        require((r["loss_g"] != 0.0) == g_step and np.isfinite(r["loss_g"]),
+                f"loss_g logged {r['loss_g']} at step {r['step']}")
+    require(all(m["gp"].item() > 0 for m in wgp_metrics), "gp not > 0")
+    log(f"[wgan_gp] {tw.state.step} steps under \"pallas\"; ms/step "
+        f"{wgp_ms} (one D update a step, a G update every {n_critic}); gp "
+        f"{[round(r['gp'], 4) for r in rows]}")
+    del tw
+
+    # -- 9. conditional: cdcgan_celeba64 at full width, fuse_stats on / off -
+    zero_counts()
+    cdata = load_dataset("synthetic", image_size=64, channels=3,
+                         synthetic_size=10 * TRAIN_BATCH,
+                         seed=tcfg.train.seed, n_classes=2)
+    ccfgs = {m: slice_cfg("cdcgan_celeba64", f"cdcgan_{m}", fuse_stats=m,
+                          sample_every=10) for m in ("off", "on")}
+    cc = ccfgs["on"]
+    require(cc.model.nz == 100 and cc.model.ngf == 64 and cc.model.ndf == 64
+            and cc.model.n_classes == 2 and cc.model.embed_dim == 50
+            and cc.data.batch_size == TRAIN_BATCH and cc.data.hflip
+            and cc.model.d_batchnorm and cc.train.precision == "bf16",
+            "not the full-width cdcgan_celeba64 configuration")
+    c_tr = {m: Trainer(ccfgs[m], data=cdata, device=dev) for m in ccfgs}
+    c_first = {m: c_tr[m].train(1) for m in ("off", "on")}  # and a grid
+    for k in ("loss_d", "loss_g", "d_real", "d_fake"):
+        log(f"[cdcgan] step 1 {k}: fuse on {c_first['on'][k]:.6f} off "
+            f"{c_first['off'][k]:.6f}")
+        # phase 5's bound: the two paths round y and take BN's statistics
+        # at different places
+        require(abs(c_first["on"][k] - c_first["off"][k]) <= 1e-2,
+                f"step 1 {k}: fuse on {c_first['on'][k]} vs off "
+                f"{c_first['off'][k]}")
+    c_metrics = []
+    c_times = {"on": [], "off": []}
+    for mode in ("off", "on", "on", "off"):  # in turns, on one card
+        c_times[mode].append(run_steps(c_tr[mode], 5, cdata, c_metrics))
+    profile_steps(c_tr["on"], 5, cdata, c_metrics,
+                  "cdcgan_celeba64 fuse_stats=on", top=8)
+    finite(c_metrics, "cdcgan_celeba64")
+    counts = read_counts("train cdcgan_celeba64")
+    steps_on = c_tr["on"].state.step
+    require(counts["conv_stats"] == 9 * steps_on,
+            f"{counts['conv_stats']} conv_stats launches in {steps_on} "
+            f"steps, not 9 a step")
+    require(counts["v2"] > 0, "no conditional sample grid")
+    require(counts["conv_affine_act"] == 0,
+            "kernel 4 launched in the cdcgan train steps")
+    for mode in ("on", "off"):
+        ms = sum(c_times[mode]) / len(c_times[mode])
+        log(f"[cdcgan] fuse_stats={mode}: {ms:.4f} ms/step "
+            f"({TRAIN_BATCH * 1e3 / ms:.1f} images/s; runs "
+            f"{', '.join(f'{t:.4f}' for t in c_times[mode])} ms/step)")
+    cd = c_tr["on"].d
+    yr = torch.from_numpy(cdata["labels"][:TRAIN_BATCH]).to(dev).long()
+    require(bool((yr == 0).any() and (yr == 1).any()), "one class only")
+    cs = Sampler(cc, c_tr["on"].g)
+    yf = torch.from_numpy(cs.labels(TRAIN_BATCH, 1)).to(dev).long()
+    fake_c = torch.from_numpy(cs.sample(TRAIN_BATCH, seed=1)).to(dev)
+    first_in = []
+    hook = cd.d.block0.register_forward_pre_hook(
+        lambda mod, args: first_in.append(args[0]))
+    eval_scores(cd, [("real", (real, yr)), ("generated", (fake_c, yf))],
+                len(cd.d.blocks), "eval D cdcgan_celeba64")
+    hook.remove()
+    x_first = first_in[0].to(bf)
+    require(x_first.shape[3] == 4 and cuda_conv.plan(
+        x_first, cd.d.block0.conv.cout)[0] == "narrow",
+        f"the conditional D's first layer ({tuple(x_first.shape)}) is not "
+        f"on the narrow path")
+    del c_tr, cd
+
+    # -- 10. report ---------------------------------------------------------
+    for key, rep_k in report.items():
+        by_path = {p: c[key] for p, c in path_counts.items() if c[key]}
+        rep_k["launches"] = sum(by_path.values())
+        rep_k["launches_by_path"] = by_path
+    order = ("name", "route", "source", "replaces", "launches",
+             "launches_by_path", "max_abs_err", "ms", "device_ms", "plain_ms",
+             "bound_ms", "bound_by", "library_ms", "library_device_ms",
+             "cases")
     kernels = [{k: report[key][k] for k in order}
                for key in ("convt_affine_act", "v1", "v2", "conv_affine_act",
                            "conv_stats")]

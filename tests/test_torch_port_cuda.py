@@ -290,6 +290,10 @@ CONV_SHAPES = [(3, 10, 6, 3, 7), (2, 8, 8, 33, 40), (1, 4, 2, 16, 3),
 # RGB layer and three wide ones, the last split over a cluster of 4
 D_SHAPES = [(2, 64, 64, 3, 64), (2, 32, 32, 64, 128), (3, 16, 16, 128, 256),
             (4, 8, 8, 256, 512)]
+# the conditional D's first layer (image + label plane, Cin 4: narrow) and
+# the 32 px D's three layers (sngan / wgan_gp, ndf 64) at batch 2
+NEW_D_SHAPES = [(2, 64, 64, 4, 64), (2, 32, 32, 3, 64), (2, 16, 16, 64, 128),
+                (2, 8, 8, 128, 256)]
 # and for the conv + BN-statistics kernel: Cin 96 (padded to 128), Cout 136
 # (a ragged second 128-wide tile), 3 output grids of 6 x 10 (two per box),
 # and the main path's first and last BN layers at batch 2 and 4
@@ -308,7 +312,8 @@ def _conv_operands(cuda, n, h, w, cin, cout, seed):
 
 @pytest.mark.parametrize("act", ["leaky_relu", "relu", "tanh", "none"])
 @pytest.mark.parametrize("out_dtype", [torch.float32, BF])
-@pytest.mark.parametrize("n,h,w,cin,cout", CONV_SHAPES + D_SHAPES)
+@pytest.mark.parametrize("n,h,w,cin,cout",
+                         CONV_SHAPES + D_SHAPES + NEW_D_SHAPES)
 def test_conv_kernel_matches_plain(cuda, n, h, w, cin, cout, act, out_dtype):
     gen, x, wt = _conv_operands(cuda, n, h, w, cin, cout, n * 100 + cin)
     a, b = _rand((cout,), gen, cuda), _rand((cout,), gen, cuda)
@@ -441,3 +446,60 @@ def test_conv_kernels_refuse_what_they_do_not_take(cuda):
     with pytest.raises(RuntimeError, match="forward-only"):
         cuda_conv.conv_affine_act(x.to(BF), w.to(BF).requires_grad_(), one,
                                   zero)
+
+
+def _eval_d(cuda, preset, moves=2):
+    """(cfg, D) of ``preset`` at full width in bf16 on the card, with
+    BatchNorm statistics and spectral norm's u moved by ``moves``
+    train-mode forwards."""
+    from tpugan_torch.models.registry import build_discriminator
+
+    cfg = get_preset(preset)
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    d = build_discriminator(cfg.model, "bf16", device=cuda, generator=gen)
+    s, n = cfg.model.image_size, 4
+    cond = cfg.model.arch == "cdcgan"
+    with torch.no_grad():
+        d.train()
+        for _ in range(moves):
+            x = torch.rand((n, s, s, 3), generator=gen, device=cuda) * 2 - 1
+            y = torch.arange(n, device=cuda) % max(cfg.model.n_classes, 1)
+            d(x, y) if cond else d(x)
+    return cfg, d.eval()
+
+
+@pytest.mark.parametrize("preset,blocks", [("sngan_cifar10", 3),
+                                           ("cdcgan_celeba64", 4)])
+def test_eval_d_under_pallas_matches_xla(cuda, preset, blocks):
+    """The spectrally normalized D (the kernel takes W / sigma in bf16) and
+    the conditional D (its first layer: image + label plane, Cin 4, on the
+    narrow path) in eval mode, one kernel launch a block, against the
+    "xla" impl; spectral norm's u does not move."""
+    from tpugan_torch.ops import convs
+
+    cfg, d = _eval_d(cuda, preset)
+    s = cfg.model.image_size
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    x = (torch.rand((4, s, s, 3), generator=gen, device=cuda) * 2 - 1)
+    args = ((x, torch.tensor([0, 1, 1, 0], device=cuda))
+            if cfg.model.arch == "cdcgan" else (x,))
+    if cfg.model.arch == "cdcgan":
+        x4 = torch.zeros((4, s, s, 4), dtype=BF, device=cuda)
+        assert cuda_conv.plan(x4, cfg.model.ndf)[0] == "narrow"
+    us = {k: v.clone() for k, v in d.state_dict().items() if k.endswith(".u")}
+    before = cuda_conv.launches
+    with torch.no_grad():
+        convs.set_default_impl("pallas")
+        try:
+            got = d(*args).float()
+        finally:
+            convs.set_default_impl("xla")
+        ref = d(*args).float()
+    torch.cuda.synchronize()
+    assert cuda_conv.launches == before + blocks
+    assert bool(torch.isfinite(got).all())
+    # each block rounds to bf16 at other places (chip_smoke.py phase 6)
+    assert bool(((got - ref).abs() <= 3e-2 * (1 + ref.abs())).all()), (
+        (got - ref).abs().max().item())
+    for k, u in us.items():
+        assert torch.equal(d.state_dict()[k], u), k

@@ -148,3 +148,51 @@ def test_jax_init_is_not_needed_for_a_port_generator():
     params, state = g.init(jax.random.PRNGKey(0))
     names = set(flatten(params)) | set(flatten(state))
     assert names == set(a.state_dict())
+
+
+# A bf16 eval GBlock against tpugan's: the port's fused block rounds once,
+# after the fp32 affine and activation; tpugan rounds the ConvT output to
+# bf16, then applies BN (fp32, rounded) and the activation.  As for the
+# DBlock (tests/test_torch_port_discriminator.py): 2^-7 |ref| + 2^-6 of the
+# largest |convT| * a, a few ulps of the layer's largest value.
+@pytest.mark.parametrize("final", [False, True], ids=["BN + ReLU",
+                                                      "final, Tanh"])
+def test_bf16_fused_eval_gblock_matches_jax(rng, final):
+    from tpugan.models.blocks import GBlock as JaxGBlock
+    from tpugan_torch.models.blocks import GBlock
+
+    cin, cout = 32, (3 if final else 16)
+    jb = JaxGBlock(cin, cout, final=final, dtype=jnp.bfloat16)
+    params, state = jb.init(jax.random.PRNGKey(5))
+    if final:  # a bias that is not zero
+        params["conv"]["b"] = jax.random.normal(jax.random.PRNGKey(6),
+                                                (cout,)) * 0.1
+    x = rng.standard_normal((4, 8, 8, cin)).astype(np.float32)
+    for _ in range(2):  # running statistics from two train-mode batches
+        _, state = jb.apply(params, state, jnp.asarray(
+            rng.standard_normal(x.shape), jnp.bfloat16), train=True)
+    ref, _ = jb.apply(params, state, jnp.asarray(x, jnp.bfloat16),
+                      train=False)
+    tb = GBlock(cin, cout, final=final, device="cpu",
+                generator=torch.Generator().manual_seed(5))
+    load_jax_module(tb, to_numpy(params), to_numpy(state))
+    xb = torch.from_numpy(x).to(torch.bfloat16)
+    convs.set_default_impl("pallas")
+    try:
+        with torch.no_grad():
+            got = tb.eval()(xb)
+    finally:
+        convs.set_default_impl("xla")
+    assert got.dtype == torch.bfloat16
+    a = (torch.ones(cout) if final
+         else tb.bn.scale * torch.rsqrt(tb.bn.var + tb.bn.eps))
+    pre = convs.conv_transpose2d(xb.float(), tb.conv.w.to(torch.bfloat16)
+                                 .float(), stride=2, padding=1,
+                                 impl="xla") * a
+    ref = torch.from_numpy(np.asarray(ref, np.float32))
+    err = (got.float() - ref).abs()
+    limit = 2.0 ** -7 * ref.abs() + 2.0 ** -6 * pre.abs().max()
+    assert bool((err <= limit).all()), (
+        f"max err {err.max().item()}, largest value "
+        f"{ref.abs().max().item()}, largest |convT| * a "
+        f"{pre.abs().max().item()}")

@@ -13,6 +13,16 @@ shows, while sum-order noise (under 1e-6 here) does not.  A near-zero
 gradient whose sign flipped between the two would move its parameter by
 about 2 lr and fail the check.  The losses and BatchNorm statistics move
 with the parameters: 1e-4 relative plus 1e-4 absolute, after three steps.
+
+The conditional case has such gradients by construction: the label
+embedding enters G's head and D's label projection as two distinct rows (one
+per class), so those weights' gradients are rank-2 sums e[0] A0 + e[1] A1
+that cancel to within fp32 sum-order noise of zero (dg ~ 1e-6 of the
+gradient's scale) at a few of their 250,000 entries.  Adam moves an entry
+by lr g / (|g| + eps), which a gradient error dg changes by at most
+lr dg / eps: a whole lr at the preset's eps of 1e-8, lr / 100 at 1e-4.  That
+case runs with eps = 1e-4; the other entries' gradients (median ~3e-2) still
+move their parameters by ~lr.
 """
 
 import jax
@@ -38,6 +48,20 @@ CASES = [
     # RMSprop, weight clipping, and a G update every second call
     ("wgan_cifar10", {"model.ngf": 8, "model.ndf": 8, "model.nz": 12,
                       "data.batch_size": 6, "loss.n_critic": 2}),
+    # hinge loss, spectral norm in every DBlock and the tail (its u moves
+    # in three train-mode D forwards a step), no BN in D
+    ("sngan_cifar10", {"model.ngf": 8, "model.ndf": 8, "model.nz": 12,
+                       "data.batch_size": 6}),
+    # the gradient penalty (a double backward through D in eval mode, alpha
+    # from the step's k_gp), Adam(1e-4, 0.5/0.9), a G update every second
+    # call
+    ("wgan_gp_cifar10", {"model.ngf": 8, "model.ndf": 8, "model.nz": 12,
+                         "data.batch_size": 6, "loss.n_critic": 2}),
+    # the conditional pair: real labels from the batch, fake labels drawn
+    # from k_yd / k_yg, the label plane as D's fourth input channel, with
+    # Adam's eps at 1e-4 (module doc)
+    ("cdcgan_celeba64", {"model.ngf": 8, "model.ndf": 8, "model.nz": 12,
+                         "data.batch_size": 6, "optim.eps": 1e-4}),
 ]
 
 
@@ -64,6 +88,24 @@ def _compare_state(jstate, pstate, atol):
 @pytest.mark.parametrize("mode", ["on", "off"])
 @pytest.mark.parametrize("preset,overrides", CASES, ids=[c[0] for c in CASES])
 def test_three_steps_match_jax(fuse, preset, overrides, mode):
+    _three_steps(preset, overrides, mode, state_after=(0, 2))
+
+
+@pytest.mark.parametrize("mode", ["on", "off"])
+def test_cdcgan128_steps_match_jax(fuse, mode):
+    """cdcgan_celeba128 at ndf = ngf = 4: the losses of three steps and the
+    state after the first.  By the third step the two packages' gradients
+    part by more than sum order in a few entries: a ReLU or LeakyReLU
+    input within fp32 noise of its kink takes the other slope in one of
+    them, so the state after three steps is not a well-posed comparison at
+    this size."""
+    _three_steps("cdcgan_celeba128",
+                 {"model.ngf": 4, "model.ndf": 4, "model.nz": 12,
+                  "data.batch_size": 4, "optim.eps": 1e-4}, mode,
+                 state_after=(0,))
+
+
+def _three_steps(preset, overrides, mode, state_after):
     overrides = {**overrides, "train.precision": "fp32",
                  "train.fuse_stats": mode}
     cfg, g, d, jstate, pcfg, pstate = twin_train_states(preset, overrides)
@@ -71,15 +113,53 @@ def test_three_steps_match_jax(fuse, preset, overrides, mode):
     jstep = build_train_step(cfg, g, d)
     pstep = port_step(pcfg, pstate.g, pstate.d)
     bsz = cfg.data.batch_size
-    imgs = make_synthetic(cfg.model.image_size, cfg.model.channels, 3 * bsz,
-                          seed=5)["images"]
+    data = make_synthetic(cfg.model.image_size, cfg.model.channels, 3 * bsz,
+                          seed=5, n_classes=max(cfg.model.n_classes, 0))
     lr = max(cfg.optim.lr_g, cfg.optim.lr_d)
     for i in range(3):
-        batch = imgs[i * bsz:(i + 1) * bsz]
-        jstate, jm = jstep(jstate, {"image": jnp.asarray(batch)})
-        pstate, pm = pstep(pstate, {"image": torch.from_numpy(batch)})
+        part = slice(i * bsz, (i + 1) * bsz)
+        batch = {"image": data["images"][part]}
+        if cfg.model.arch == "cdcgan":
+            batch["label"] = data["labels"][part]
+        jstate, jm = jstep(jstate, {k: jnp.asarray(v)
+                                    for k, v in batch.items()})
+        pstate, pm = pstep(pstate, {k: torch.from_numpy(v)
+                                    for k, v in batch.items()})
         for k, v in jm.items():
             np.testing.assert_allclose(pm[k].item(), float(v), rtol=1e-4,
                                        atol=1e-4, err_msg=f"step {i} {k}")
-        if i in (0, 2):
+        if i in state_after:
             _compare_state(jax.device_get(jstate), pstate, atol=lr / 20)
+
+
+def test_parity_hooks_replace_the_draws():
+    """The batch entries z_d, z_g, y_fake_d, y_fake_g and gp_alpha replace
+    the step's own draws, in both packages alike (a conditional model under
+    the gradient penalty takes all five)."""
+    over = {"model.ngf": 4, "model.ndf": 4, "model.nz": 8,
+            "data.batch_size": 4, "train.precision": "fp32",
+            "loss.kind": "wgan_gp", "loss.n_critic": 1}
+    cfg, g, d, jstate, pcfg, pstate = twin_train_states("cdcgan_celeba64",
+                                                        over)
+    rng = np.random.default_rng(8)
+    data = make_synthetic(64, 3, 4, seed=6, n_classes=2)
+    hooks = {"z_d": rng.standard_normal((4, 8)).astype(np.float32),
+             "z_g": rng.standard_normal((4, 8)).astype(np.float32),
+             "y_fake_d": np.array([1, 1, 0, 1], np.int32),
+             "y_fake_g": np.array([0, 0, 1, 0], np.int32),
+             "gp_alpha": np.array([0.1, 0.5, 0.9, 0.3], np.float32)}
+    batch = {"image": data["images"], "label": data["labels"], **hooks}
+    _, jm = build_train_step(cfg, g, d)(
+        jstate, {k: jnp.asarray(v) for k, v in batch.items()})
+    pstep = port_step(pcfg, pstate.g, pstate.d)
+    _, pm = pstep(pstate, {k: torch.from_numpy(v) for k, v in batch.items()})
+    assert float(jm["gp"]) > 0
+    for k, v in jm.items():
+        np.testing.assert_allclose(pm[k].item(), float(v), rtol=1e-4,
+                                   atol=1e-4, err_msg=k)
+    # without the hooks the step draws other latents, labels and alpha
+    *_, pcfg2, pstate2 = twin_train_states("cdcgan_celeba64", over)
+    _, drawn = port_step(pcfg2, pstate2.g, pstate2.d)(pstate2, {
+        "image": torch.from_numpy(data["images"]),
+        "label": torch.from_numpy(data["labels"])})
+    assert drawn["gp"].item() != pm["gp"].item()

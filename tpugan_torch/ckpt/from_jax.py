@@ -3,10 +3,13 @@
 The JAX package keeps params and state as nested dicts (``head.dense.w``,
 ``block{i}.conv.{w,b}``, ``block{i}.bn.{scale,bias}``, state
 ``block{i}.bn.{mean,var}``, ``final.conv.{w,b}``, ``tail.dense.{w,b}``,
-``embed.table``, and the conditional generator's ``g.*``).  The port's
-modules keep the same layouts under the same names, so carrying weights
-across is a name map: the dotted keys of params and state together are the
-module's ``state_dict`` keys.
+spectral norm's state ``block{i}.conv.u`` and ``tail.dense.u``,
+``embed.table``, the conditional generator's ``g.*`` and the conditional
+discriminator's ``proj.{w,b}`` and ``d.*``).  The port's modules keep the
+same layouts under the same names, so carrying weights across is a name
+map: the dotted keys of params and state together are the module's
+``state_dict`` keys.  Spectral norm's ``u`` is a buffer, not a parameter,
+so the optimizer moments still match ``named_parameters()``.
 
 ``load_jax_train_state`` carries a whole JAX ``TrainState`` (both modules,
 the optimizers' moments and counts, the run's key and step) into a port

@@ -9,8 +9,8 @@ All reductions are means over the batch, in fp32.
 
 Kinds: ``bce`` (non-saturating DCGAN), ``lsgan`` (least squares, the 1/2
 factors), ``wgan`` (critic difference; the trainer clips the weights),
-``wgan_gp`` (the same critic loss; the penalty term is not ported yet) and
-``hinge``.
+``wgan_gp`` (the same critic loss; the train step adds lambda times the
+penalty of ``losses/gradient_penalty.py``) and ``hinge``.
 """
 
 from __future__ import annotations

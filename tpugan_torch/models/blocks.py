@@ -5,16 +5,20 @@
   is reshaped as (N, s0, s0, c0), channels last, as in the JAX package.
 - ``GBlock``: ConvTranspose(4, 2, 1) -> BatchNorm -> ReLU, or ConvT -> Tanh
   for the final layer.
-- ``DBlock``: Conv(4, 2, 1) -> [BatchNorm] -> LeakyReLU.
-- ``DTail``: flatten the final NHWC map -> Dense -> one logit per image.
+- ``DBlock``: Conv(4, 2, 1) -> [BatchNorm] -> LeakyReLU, the conv
+  optionally spectrally normalized (``nn/spectral_norm.py``).
+- ``DTail``: flatten the final NHWC map -> Dense -> one logit per image,
+  the Dense optionally spectrally normalized.
 
 Under the "pallas" impl (``ops.convs.set_default_impl``) an eval-mode GBlock
 or DBlock is one call of a fused kernel (``cuda_convt.convt_affine_act``,
 ``cuda_conv.conv_affine_act``): BatchNorm (or the conv bias) folds into its
-per-channel (a, b) epilogue.  These kernels are forward-only.  A train-mode
-DBlock with BatchNorm runs ``cuda_conv_stats.conv_bn_stats`` when its own
-``fuse_stats`` mode (``train.fuse_stats`` of the config that built it) is on:
-the conv and its batch statistics in one kernel, with a PyTorch backward.
+per-channel (a, b) epilogue; under spectral norm the kernel takes
+W / sigma (sigma from the stored ``u``), cast to the compute dtype.  These
+kernels are forward-only.  A train-mode DBlock with BatchNorm and no spectral
+norm runs ``cuda_conv_stats.conv_bn_stats`` when its own ``fuse_stats`` mode
+(``train.fuse_stats`` of the config that built it) is on: the conv and its
+batch statistics in one kernel, with a PyTorch backward.
 """
 
 from __future__ import annotations
@@ -24,6 +28,7 @@ from torch import nn
 
 from tpugan_torch.nn.layers import (BatchNorm, Conv, ConvTranspose, Dense,
                                     LeakyReLU, ReLU, Tanh)
+from tpugan_torch.nn.spectral_norm import SNConv, SNDense
 from tpugan_torch.ops import convs, cuda_conv, cuda_conv_stats, cuda_convt
 from tpugan_torch.ops.fused import bn_act, bn_affine
 
@@ -88,9 +93,10 @@ class GHead(nn.Module):
 
 
 class DBlock(nn.Module):
-    """Conv(k4,s2,p1) + [BN] + LeakyReLU(leak); spectral norm raises (it is
-    not ported yet).  ``fuse_stats`` ("on" | "off" | "auto") selects the
-    train-mode path of a block with BN."""
+    """Conv(k4,s2,p1) + [BN] + LeakyReLU(leak), the conv spectrally
+    normalized under ``spectral_norm``.  ``fuse_stats`` ("on" | "off" |
+    "auto") selects the train-mode path of a block with BN and no spectral
+    norm (the fused kernel takes the conv's own weight)."""
 
     def __init__(self, cin, cout, *, batchnorm=False, spectral_norm=False,
                  leak=0.2, fuse_stats="off", dtype=torch.bfloat16,
@@ -99,12 +105,10 @@ class DBlock(nn.Module):
         if fuse_stats not in cuda_conv_stats.FUSE_MODES:
             raise ValueError(f"unknown fuse_stats mode {fuse_stats!r}")
         self.fuse_stats = fuse_stats
-        if spectral_norm:
-            raise NotImplementedError(
-                "spectral norm is not ported yet (ROADMAP.md, Queue A: "
-                "'Discriminator models', SpectralNorm)")
-        self.conv = Conv(cin, cout, use_bias=not batchnorm, dtype=dtype,
-                         device=device, generator=generator)
+        self._fusable = batchnorm and not spectral_norm
+        self.conv = (SNConv if spectral_norm else Conv)(
+            cin, cout, use_bias=not batchnorm, dtype=dtype, device=device,
+            generator=generator)
         self.bn = (BatchNorm(cout, dtype=dtype, device=device,
                              generator=generator) if batchnorm else None)
         self.act = LeakyReLU(leak)
@@ -128,12 +132,12 @@ class DBlock(nn.Module):
         else:  # no BN: the conv keeps its bias
             a, b = torch.ones(conv.cout, device=x.device), conv.b.float()
         return cuda_conv.conv_affine_act(
-            x.to(conv.dtype), conv.w.to(conv.dtype), a, b, act="leaky_relu",
-            leak=self.act.slope, out_dtype=conv.dtype)
+            x.to(conv.dtype), conv.weight().to(conv.dtype), a, b,
+            act="leaky_relu", leak=self.act.slope, out_dtype=conv.dtype)
 
     def forward(self, x):
         if self.training:
-            if (self.bn is not None
+            if (self._fusable
                     and cuda_conv_stats.fuse_stats_enabled(self.fuse_stats, x)
                     and x.shape[1] % 2 == 0 and x.shape[2] % 2 == 0):
                 return self._fused_train(x)
@@ -146,14 +150,16 @@ class DBlock(nn.Module):
 
 
 class DTail(nn.Module):
-    """Flatten the final s0 x s0 NHWC map and project to one logit."""
+    """Flatten the final s0 x s0 NHWC map and project to one logit; the
+    Dense spectrally normalized under ``spectral_norm``."""
 
-    def __init__(self, s0, cin, *, dtype=torch.bfloat16, device="cuda",
-                 generator=None):
+    def __init__(self, s0, cin, *, spectral_norm=False, dtype=torch.bfloat16,
+                 device="cuda", generator=None):
         super().__init__()
         self.s0, self.cin = s0, cin
-        self.dense = Dense(s0 * s0 * cin, 1, use_bias=True, dtype=dtype,
-                           device=device, generator=generator)
+        self.dense = (SNDense if spectral_norm else Dense)(
+            s0 * s0 * cin, 1, use_bias=True, dtype=dtype, device=device,
+            generator=generator)
 
     def forward(self, x):
         return self.dense(x.reshape(x.shape[0], -1))[:, 0]

@@ -80,28 +80,32 @@ def _d_schedule(image_size: int, ndf: int) -> Tuple[int, List[int]]:
 
 
 class Discriminator(nn.Module):
-    """image (N, S, S, C) -> logit (N,), in the compute dtype."""
+    """image (N, S, S, C) -> logit (N,), in the compute dtype.
+
+    ``in_channels`` may exceed the image's channels for the conditional D
+    (a label plane concatenated at the input)."""
 
     def __init__(self, image_size: int, channels: int, ndf: int,
                  *, batchnorm: bool = True, spectral_norm: bool = False,
                  leak: float = 0.2, fuse_stats: str = "off",
-                 dtype=torch.bfloat16, device="cuda", generator=None):
+                 dtype=torch.bfloat16, in_channels: int | None = None,
+                 device="cuda", generator=None):
         super().__init__()
         self.image_size = image_size
         s0, chans = _d_schedule(image_size, ndf)
         kw = dict(spectral_norm=spectral_norm, leak=leak,
                   fuse_stats=fuse_stats, dtype=dtype, device=device,
                   generator=generator)
-        cin = channels
+        cin = in_channels or channels
         self.n_blocks = len(chans)
         for i, cout in enumerate(chans):
-            # the first block has no BN (the DCGAN idiom)
+            # the first block has no BN (the DCGAN idiom); SN in every one
             self.add_module(f"block{i}",
                             DBlock(cin, cout, batchnorm=batchnorm and i > 0,
                                    **kw))
             cin = cout
-        self.tail = DTail(s0, chans[-1], dtype=dtype, device=device,
-                          generator=generator)
+        self.tail = DTail(s0, chans[-1], spectral_norm=spectral_norm,
+                          dtype=dtype, device=device, generator=generator)
 
     @property
     def blocks(self) -> List[DBlock]:

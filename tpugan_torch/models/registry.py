@@ -1,7 +1,4 @@
 """Model construction from config (port of ``tpugan/models/registry.py``).
-
-The conditional discriminator is not ported yet (ROADMAP.md, Queue A:
-"Discriminator models"): ``build_discriminator`` raises for ``cdcgan``.
 """
 
 from __future__ import annotations
@@ -9,7 +6,7 @@ from __future__ import annotations
 import torch
 
 from tpugan_torch.configs import ModelConfig
-from tpugan_torch.models.cdcgan import CondGenerator
+from tpugan_torch.models.cdcgan import CondDiscriminator, CondGenerator
 from tpugan_torch.models.dcgan import Discriminator, Generator
 
 
@@ -43,17 +40,17 @@ def build_discriminator(cfg: ModelConfig, precision: str = "bf16", *,
     """The discriminator for a ModelConfig, weights drawn from
     ``generator``; ``fuse_stats`` (a ``train.fuse_stats`` mode) goes to each
     DBlock."""
+    kw = dict(batchnorm=cfg.d_batchnorm, spectral_norm=cfg.d_spectral_norm,
+              leak=cfg.leak, fuse_stats=fuse_stats,
+              dtype=compute_dtype(precision), device=device,
+              generator=generator)
     if cfg.arch == "dcgan":
-        return Discriminator(cfg.image_size, cfg.channels, cfg.ndf,
-                             batchnorm=cfg.d_batchnorm,
-                             spectral_norm=cfg.d_spectral_norm, leak=cfg.leak,
-                             fuse_stats=fuse_stats,
-                             dtype=compute_dtype(precision), device=device,
-                             generator=generator)
+        return Discriminator(cfg.image_size, cfg.channels, cfg.ndf, **kw)
     if cfg.arch == "cdcgan":
-        raise NotImplementedError(
-            "the conditional discriminator is not ported yet (ROADMAP.md, "
-            "Queue A: 'Discriminator models', CondDiscriminator)")
+        if cfg.n_classes <= 0:
+            raise ValueError("cdcgan requires model.n_classes > 0")
+        return CondDiscriminator(cfg.image_size, cfg.channels, cfg.ndf,
+                                 cfg.n_classes, resolve_embed_dim(cfg), **kw)
     raise ValueError(f"unknown arch {cfg.arch!r}")
 
 

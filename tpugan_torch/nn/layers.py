@@ -52,8 +52,12 @@ class Conv(nn.Module):
         self.b = (nn.Parameter(torch.zeros(cout, device=resolve_device(device)))
                   if use_bias else None)
 
+    def weight(self) -> torch.Tensor:
+        """The fp32 weight the forward uses (``SNConv``: w / sigma)."""
+        return self.w
+
     def forward(self, x):
-        y = convs.conv2d(x.to(self.dtype), self.w.to(self.dtype),
+        y = convs.conv2d(x.to(self.dtype), self.weight().to(self.dtype),
                          stride=self.stride, padding=self.padding)
         if self.b is not None:
             y = y + self.b
@@ -99,9 +103,13 @@ class Dense(nn.Module):
         self.b = (nn.Parameter(torch.zeros(dout, device=resolve_device(device)))
                   if use_bias else None)
 
+    def weight(self) -> torch.Tensor:
+        """The fp32 weight the forward uses (``SNDense``: w / sigma)."""
+        return self.w
+
     def forward(self, x):
         # operands rounded to the compute dtype, products summed in fp32
-        y = x.to(self.dtype).float() @ self.w.to(self.dtype).float()
+        y = x.to(self.dtype).float() @ self.weight().to(self.dtype).float()
         if self.b is not None:
             y = y + self.b
         return y.to(self.dtype)

@@ -8,10 +8,13 @@ with unflipped HWIO weights.  impl "xla" leaves each to PyTorch's own
 XLA); impl "pallas" runs the hand-written kernels of ``ops/cuda_conv.py`` /
 ``ops/cuda_convt.py`` (their plain versions for a CPU tensor).  Unlike the
 JAX package there is no quiet fallback: "pallas" on a shape a kernel does
-not take raises.
+not take raises.  The kernels are forward-only, so the train step runs its
+forwards under ``using_impl("xla")``, whatever the default is.
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import torch.nn.functional as F
 
@@ -26,6 +29,19 @@ def set_default_impl(impl: str) -> None:
     if impl not in IMPLS:
         raise ValueError(f"unknown ops impl {impl!r}")
     _DEFAULT_IMPL = impl
+
+
+@contextlib.contextmanager
+def using_impl(impl: str):
+    """The default impl is ``impl`` inside the block, and what it was
+    before after it."""
+    global _DEFAULT_IMPL
+    prev = _DEFAULT_IMPL
+    set_default_impl(impl)
+    try:
+        yield
+    finally:
+        _DEFAULT_IMPL = prev
 
 
 def resolve_impl(impl: str | None) -> str:

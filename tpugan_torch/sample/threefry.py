@@ -128,11 +128,12 @@ def truncated_normal(key, lower: float, upper: float, shape) -> np.ndarray:
                    np.nextafter(upper, np.float32(-np.inf)))
 
 
-def randint(key, minval: int, maxval: int) -> np.ndarray:
-    """``jax.random.randint(key, (), minval, maxval)`` int32, per key."""
+def randint(key, minval: int, maxval: int, shape=()) -> np.ndarray:
+    """``jax.random.randint(key, shape, minval, maxval)`` int32, per key:
+    (*key's leading axes, *shape)."""
     keys = split(key, 2)
-    hi = random_bits(keys[..., 0, :], ())
-    lo = random_bits(keys[..., 1, :], ())
+    hi = random_bits(keys[..., 0, :], shape)
+    lo = random_bits(keys[..., 1, :], shape)
     span = np.uint32(max(maxval - minval, 1))
     with np.errstate(over="ignore"):
         mult = np.uint32((2 ** 16) % span)

@@ -11,7 +11,11 @@ The host synchronizes only at those points.
 
 ``train.fuse_stats`` selects the train-mode DBlock path: "on" runs the
 conv + BN-statistics kernel (``ops/cuda_conv_stats.py``) in every DBlock
-with BatchNorm, "auto" does so on a CUDA device.
+with BatchNorm (and no spectral norm), "auto" does so on a CUDA device.
+
+A conditional model (``cdcgan``) trains on the dataset's labels, and its
+grids take the fixed labels ``Sampler.labels(64, seed)``; a dataset whose
+labels are all zero is refused.
 
 Not ported yet (ROADMAP.md, Queue A), and raising here: checkpoints
 (``ckpt_every`` must be 0; no final checkpoint is written), ``resume``,
@@ -26,6 +30,7 @@ import os
 import time
 from typing import Dict, Optional
 
+import numpy as np
 import torch
 
 from tpugan_torch.configs import Config
@@ -86,13 +91,28 @@ class Trainer:
         cfg = self.cfg
         total_steps = total_steps or cfg.train.total_steps
         out_dir = cfg.train.out_dir
+        conditional = cfg.model.arch == "cdcgan"
+        data = self._dataset()
+        if conditional and cfg.model.n_classes > 1:
+            # A conditional model on all-zero labels (the JAX loaders'
+            # fallback when a label file is absent) would see every real
+            # image as class 0 while its fake labels are uniform.
+            lab = data.get("labels")
+            lab = np.asarray(lab) if lab is not None else np.empty(0)
+            if lab.size and int(lab.max()) == 0:
+                raise ValueError(
+                    f"conditional training (model.arch='cdcgan', n_classes="
+                    f"{cfg.model.n_classes}) but the dataset's labels are "
+                    f"all zero: is the label file missing?")
         logger = MetricsLogger(out_dir)
         start_step = self.state.step
         pipeline = make_input_pipeline(
-            self._dataset(), cfg.data.batch_size, seed=cfg.train.seed,
-            with_labels=False, device=self.device, start_step=start_step)
+            data, cfg.data.batch_size, seed=cfg.train.seed,
+            with_labels=conditional, device=self.device,
+            start_step=start_step)
         sampler = self.sampler()
         fixed_z = sampler.noise(64, cfg.train.seed)
+        fixed_y = sampler.labels(64, cfg.train.seed)
 
         last_metrics: Dict[str, float] = {}
         t0 = time.perf_counter()
@@ -115,7 +135,7 @@ class Trainer:
                     imgs_since = 0
                 if cfg.train.sample_every and (
                         step_no % cfg.train.sample_every == 0 or last):
-                    imgs = sampler.sample_fixed(fixed_z)
+                    imgs = sampler.sample_fixed(fixed_z, fixed_y)
                     save_png(os.path.join(out_dir,
                                           f"samples_{step_no:07d}.png"),
                              make_grid(to_uint8(imgs), nrow=8))
