@@ -20,7 +20,9 @@ Phases, each of which fails the run (no exception is caught):
    v2 also at 128 px, conditional at 64 px and at 32 px (the
    ``sngan_cifar10`` generator's grid); kernel 4 also at the new paths'
    shapes: the conditional D's first layer (Cin 4, the narrow path) and the
-   spectrally normalized 32 px D's three layers on W / sigma;
+   spectrally normalized 32 px D's three layers on W / sigma; kernel 5 also
+   at batches 256 and 64 (the flagship's, a ``grad_accum=2`` microbatch's),
+   v2 also at a Trainer grid's 64 images;
 3. drive the main path at full width (``dcgan_celeba64``: nz=100, ngf=64,
    random weights from a seeded ``torch.Generator``, BN running stats from a
    few train-mode forwards): ``Sampler.sample(256)`` under
@@ -59,14 +61,37 @@ Phases, each of which fails the run (no exception is caught):
    bound; ms per step in turns), 9 conv + BN-stats launches a step, a
    conditional grid from v2; then the eval-mode D under "pallas" (4
    kernel-4 launches a forward, the first on the narrow path: the image and
-   its label plane, Cin 4) against "xla".
+   its label plane, Cin 4) against "xla";
+10. the flagship: ``Trainer`` on full-width ``dcgan_celeba64_fast``
+   (FusedProp, 50 steps a call, the synthetic dataset of 20 x 256 images
+   resident on the card, batch 256, ``fuse_stats="on"``) for two calls,
+   a checkpoint after each and the second profiled into ``out_dir/prof``:
+   exactly 6 conv + BN-stats launches a step (3 BN blocks x 2 D forwards),
+   the host pipeline never built, finite losses; ms per step and images/s
+   by CUDA events, the device's busy share and kernels a step under the
+   profiler; one FusedProp step's D against one alternating step's from one
+   seed, batch and ``z_d``;
+11. state and resume: full-width ``dcgan_celeba64`` (batch 128) with
+   ``ema=0.999`` and a linear LR over 10 steps, a checkpoint every 5 (cuDNN
+   deterministic): the step-10 checkpoint restores bit for bit, a run
+   resumed from step 5 ends bit for bit where the uninterrupted one did
+   (key, step, LRs exact), grids from ``g_ema`` and from G through v2
+   differ, a NaN in one D weight raises ``NonFiniteLossError`` with a
+   checkpoint at that step, a SIGTERM sent mid-run from a thread saves and
+   returns and ``resume`` continues, and the card's checkpoint restores
+   into a CPU ``Trainer`` bit for bit;
+12. ``grad_accum=2`` (18 conv + BN-stats launches a step) and ``remat`` (9
+   + 9 recomputed; step 1 against the plain step within phase 5's bound;
+   each one's peak device memory) on full-width ``dcgan_celeba64``.
 
-Phases 3-4, 5, 6, 7 (train, eval D), 8 and 9 (train, eval D) are the
-paths: each zeroes the launch counters just before it and reads them just
-after, and every kernel it names must have launched.  Each kernel's
-``launches`` in the ``kernels`` line sums its paths' counts, and
-``launches_by_path`` lists them.  The last lines are the ``kernels`` JSON,
-the card's name and power limit, and ``{"ok": true, "device": {...}}``.
+Phases 3-4, 5, 6, 7 (train, eval D), 8, 9 (train, eval D), 10, 11 and 12
+(``grad_accum``, remat's plain twin, remat) are the paths: each zeroes the
+launch counters just before it and reads them just after, and every kernel
+it names must have launched.  Each kernel's ``launches`` in the
+``kernels`` line sums its paths' counts, and ``launches_by_path`` lists
+them.  Checkpoints and the flagship's trace go to the git-ignored
+``runs/smoke``.  The last lines are the ``kernels`` JSON, the card's name
+and power limit, and ``{"ok": true, "device": {...}}``.
 Exits non-zero without a CUDA device or without the ``tpugan_torch``
 package beside this file.
 
@@ -80,7 +105,10 @@ from __future__ import annotations
 
 import io
 import json
+import os
 import re
+import shutil
+import signal
 import subprocess
 import sys
 import threading
@@ -96,6 +124,9 @@ PEAK_BYTES = 3.35e12
 
 BATCH = 256
 TRAIN_BATCH = 128
+# checkpoints and the flagship's trace: written at run time, git-ignored,
+# and kept out of chiprun_out/ (the small outputs' directory) for size
+RUNS = ROOT / "runs" / "smoke"
 
 
 def log(msg: str) -> None:
@@ -348,6 +379,70 @@ def conv_case(x, wb, a, b, **extra) -> tuple[dict, object]:
     return c, ref
 
 
+def stats_case(x, wb, **extra) -> dict:
+    """Kernel 5 (``cuda_conv_stats.conv_stats``) on one BN layer's bf16
+    input ``x`` and weight ``wb`` against its plain version (y by
+    ``bf16_err``, the statistics of the fp32 sums to 1e-4 / 1e-3 relative):
+    the case's times beside ``F.conv2d`` + ``torch.var_mean`` (cuDNN), its
+    bound, and its time by depth split."""
+    import torch
+    import torch.nn.functional as F
+
+    from tpugan_torch.ops import cuda_conv_stats
+
+    n, h, wd, cin = x.shape
+    cout = wb.shape[3]
+    shape = f"{n}x{h}x{wd}x{cin}->{h // 2}x{wd // 2}x{cout}"
+    y, mean, var = cuda_conv_stats.conv_stats(x, wb)
+    yr, mr, vr = cuda_conv_stats.conv_stats_plain(x, wb)
+    torch.cuda.synchronize()
+    ey, ok = bf16_err(y, yr)
+    require(ok, f"conv_stats {shape}: y max err {ey}")
+    # statistics of the fp32 sums on both sides, summed in another order;
+    # var = E[y^2] - mean^2 loses a few bits
+    em = (mean - mr).abs()
+    ev = (var - vr).abs()
+    require(bool((em <= 1e-5 + 1e-4 * mr.abs()).all()),
+            f"conv_stats {shape}: mean max err {em.max()}")
+    require(bool((ev <= 1e-5 + 1e-3 * vr.abs()).all()),
+            f"conv_stats {shape}: var max err {ev.max()}")
+    xl = x.permute(0, 3, 1, 2)  # NHWC storage = channels_last NCHW
+    wl = wb.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+
+    def library():
+        yl = F.conv2d(xl, wl, stride=2, padding=1)
+        return yl, torch.var_mean(yl, dim=(0, 2, 3), correction=0)
+
+    flops, byt = conv_work(x, wb, nbytes(y, mean, var))
+    flops += 3 * y.numel()  # the sums of y and y^2
+    bms, by = bound_ms(flops, byt)
+    c = dict(**extra, shape=shape, **timed(
+        lambda: cuda_conv_stats.conv_stats(x, wb), library),
+        plain_ms=time_ms(lambda: cuda_conv_stats.conv_stats_plain(x, wb), 5),
+        bound_ms=bms, bound_by=by, flops=flops, bytes=byt,
+        max_abs_err=max(ey, em.max().item(), ev.max().item()),
+        scale=yr.float().abs().max().item())
+    # the depth split against its alternatives (the plan's choice is the
+    # one the main path runs)
+    steps = 16 * -(-cin // 64)
+    c["split_ms"] = {
+        s: graph_ms(lambda s=s: cuda_conv_stats._launch(x, wb, splits=s), 20)
+        for s in (1, 2, 4) if steps % s == 0 and steps >= 8 * s}
+    c["splits"] = cuda_conv_stats.plan(x, cout)[1]
+    log(f"[kernel] conv_stats {json.dumps(c)}")
+    log(f"[kernel] conv_stats {shape}: {rate(c)}; depth split "
+        f"{c['splits']}, ms by split {c['split_ms']}")
+    return c
+
+
+def card() -> str:
+    """The card's name and power limit, as ``nvidia-smi`` gives them."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60, check=True)
+    return smi.stdout.strip().splitlines()[0]
+
+
 def run_steps(tr, n: int, data: dict, metrics: list | None = None) -> float:
     """ms per step of n train steps of Trainer ``tr`` fed by the input
     pipeline, as the Trainer runs them (logging and grids aside), by CUDA
@@ -375,27 +470,74 @@ def run_steps(tr, n: int, data: dict, metrics: list | None = None) -> float:
     return ms
 
 
-def profile_steps(tr, n: int, data: dict, metrics: list, label: str,
-                  top: int = 12) -> None:
-    """Where a step's time goes: n steps of ``tr`` under ``torch.profiler``,
-    the device time by kernel and the device's busy share of a step (the
-    rest is the host's)."""
+def profile_run(run, n: int, label: str, top: int = 12) -> dict:
+    """Where a step's time goes: ``run()`` (n steps; returns its ms per
+    step) under ``torch.profiler``, the device time by kernel and the
+    device's busy share of a step (the rest is the host's)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        prof_ms = run_steps(tr, n, data, metrics)
+        prof_ms = run()
     # kernel rows only: an operator's row repeats its kernels' device time
     kern = [e for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CUDA]
     busy = sum(e.self_device_time_total for e in kern) / 1e3 / n
+    per_step = sum(e.count for e in kern) / n
+    # the host's waits for the device (a copy from pageable host memory
+    # synchronizes its stream)
+    waits = [e for e in prof.key_averages()
+             if e.key in ("cudaStreamSynchronize", "cudaDeviceSynchronize",
+                          "cudaEventSynchronize")]
     log(f"[profile] {label}: {prof_ms:.4f} ms/step under the profiler, "
         f"device busy {busy:.4f} ms/step ({100 * busy / prof_ms:.1f}%), "
-        f"{sum(e.count for e in kern) / n:.0f} kernels/step")
+        f"{per_step:.0f} kernels/step; host waits for the device "
+        f"{sum(e.count for e in waits) / n:.1f}/step, "
+        f"{sum(e.cpu_time_total for e in waits) / 1e3 / n:.4f} ms/step")
     for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:top]:
         log(f"[profile]   {e.self_device_time_total / 1e3 / n:8.4f} ms/step "
             f"{e.count / n:6.1f}/step  {e.key[:90]}")
+    return dict(ms=prof_ms, busy_ms=busy, busy_share=busy / prof_ms,
+                kernels=per_step)
+
+
+def profile_steps(tr, n: int, data: dict, metrics: list, label: str,
+                  top: int = 12) -> dict:
+    """``profile_run`` over n steps of ``tr`` fed by the input pipeline."""
+    return profile_run(lambda: run_steps(tr, n, data, metrics), n, label,
+                       top)
+
+
+def state_tensors(a, b):
+    """(name, tensor of a, tensor of b) over two TrainStates' modules, EMA
+    and optimizer states, on the CPU."""
+    sa, sb = a.state_dict(), b.state_dict()
+    for part in ("g", "d", "g_ema"):
+        for k, t in (sa[part] or {}).items():
+            yield f"{part}.{k}", t.cpu(), sb[part][k].cpu()
+    for part in ("opt_g", "opt_d"):
+        for i, st in sa[part]["state"].items():
+            for k, t in st.items():
+                yield f"{part}.{i}.{k}", t.cpu(), sb[part]["state"][i][k].cpu()
+
+
+def max_state_diff(a, b) -> float:
+    """The largest |difference| between two TrainStates' tensors."""
+    return max((ta.float() - tb.float()).abs().max().item()
+               for _, ta, tb in state_tensors(a, b))
+
+
+def states_equal(a, b) -> bool:
+    """Two TrainStates hold the same bits: every parameter and buffer, the
+    EMA, both optimizers' moments, counts and LRs, the key and the step."""
+    import torch
+
+    sa, sb = a.state_dict(), b.state_dict()
+    return ((sa["step"], sa["rng"]) == (sb["step"], sb["rng"])
+            and all(sa[p]["param_groups"] == sb[p]["param_groups"]
+                    for p in ("opt_g", "opt_d"))
+            and all(torch.equal(ta, tb) for _, ta, tb in state_tensors(a, b)))
 
 
 def gen_work(z, head, blocks, s0, c0, out_elems):
@@ -525,8 +667,10 @@ def main() -> int:
     from tpugan_torch.ops.fused import bn_affine
     from tpugan_torch.sample import threefry
     from tpugan_torch.sample.sampler import Sampler, seeded_noise
+    from tpugan_torch.ckpt.checkpoint import CheckpointManager
     from tpugan_torch.serve.server import BatchingEngine, make_server
-    from tpugan_torch.train.trainer import Trainer
+    from tpugan_torch.train import trainer as trainer_mod
+    from tpugan_torch.train.trainer import NonFiniteLossError, Trainer
 
     kernel_mods = (cuda_convt, cuda_gen, cuda_gen2, cuda_conv, cuda_conv_stats)
 
@@ -551,6 +695,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
     t_start = time.time()
+    shutil.rmtree(RUNS, ignore_errors=True)  # no earlier run's checkpoints
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)}")
 
@@ -751,13 +896,16 @@ def main() -> int:
         z32 = torch.from_numpy(seeded_noise(100, 64, seed=2)).to(dev)
         c32 = check_gen("sngan_cifar10 32px b64", g32, z32, None, ["v2"])
         del g32
+        # a Trainer grid of dcgan_celeba64 (64 images)
+        grid64 = check_gen("dcgan_celeba64 64px b64", g, z[:64], None,
+                           ["v2"])
     for key, mod, line, src in (
             ("v1", cuda_gen, "tpugan/ops/pallas_gen.py:194", "cuda_gen.cu"),
             ("v2", cuda_gen2, "tpugan/ops/pallas_gen2.py:209",
              "cuda_gen2.cu")):
         m = main64[key]
-        extra = [c128[key]] + ([cond64["v2"], c32["v2"]] if key == "v2"
-                               else [])
+        extra = [c128[key]] + ([cond64["v2"], c32["v2"], grid64["v2"]]
+                               if key == "v2" else [])
         report[key] = dict(
             name=f"{mod.__name__.rsplit('.', 1)[1]}.generator_forward",
             route="cuda", source=f"tpugan_torch/csrc/{src}", replaces=line,
@@ -773,6 +921,7 @@ def main() -> int:
     tcfg = get_preset("dcgan_celeba64").override({
         "data.dataset": "synthetic", "data.synthetic_size": 10 * TRAIN_BATCH,
         "train.ckpt_every": 0, "train.kernels": "pallas",
+        "train.ckpt_dir": str(RUNS / "train"),
         "train.fuse_stats": "on", "train.log_every": 1,
         "train.sample_every": 10, "train.out_dir": str(ROOT / "chiprun_out"
                                                        / "smoke_train")})
@@ -801,54 +950,30 @@ def main() -> int:
             c, ref = conv_case(x, wb, a, b, model="dcgan_celeba64",
                                layer=i)
             conv_cases.append(c)
-            n, h, wd, cin = x.shape
-            shape = c["shape"]
-            xl = x.permute(0, 3, 1, 2)  # NHWC storage = channels_last NCHW
-            wl = wb.permute(3, 2, 0, 1).contiguous(
-                memory_format=torch.channels_last)
             if blk.bn is not None:
-                y, mean, var = cuda_conv_stats.conv_stats(x, wb)
-                yr, mr, vr = cuda_conv_stats.conv_stats_plain(x, wb)
-                torch.cuda.synchronize()
-                ey, ok = bf16_err(y, yr)
-                require(ok, f"conv_stats layer {i}: y max err {ey}")
-                # statistics of the fp32 sums on both sides, summed in
-                # another order; var = E[y^2] - mean^2 loses a few bits
-                em = (mean - mr).abs()
-                ev = (var - vr).abs()
-                require(bool((em <= 1e-5 + 1e-4 * mr.abs()).all()),
-                        f"conv_stats layer {i}: mean max err {em.max()}")
-                require(bool((ev <= 1e-5 + 1e-3 * vr.abs()).all()),
-                        f"conv_stats layer {i}: var max err {ev.max()}")
-
-                def library_stats(xl=xl, wl=wl):
-                    y = F.conv2d(xl, wl, stride=2, padding=1)
-                    return y, torch.var_mean(y, dim=(0, 2, 3), correction=0)
-
-                flops, byt = conv_work(x, wb, nbytes(y, mean, var))
-                flops += 3 * y.numel()  # the sums of y and y^2
-                bms, by = bound_ms(flops, byt)
-                c = dict(shape=shape, **timed(
-                    lambda: cuda_conv_stats.conv_stats(x, wb), library_stats),
-                    plain_ms=time_ms(
-                        lambda: cuda_conv_stats.conv_stats_plain(x, wb), 5),
-                    bound_ms=bms,
-                    bound_by=by, flops=flops, bytes=byt,
-                    max_abs_err=max(ey, em.max().item(), ev.max().item()),
-                    scale=yr.float().abs().max().item())
-                # the depth split against its alternatives (the plan's
-                # choice is the one the main path runs)
-                steps = 16 * -(-cin // 64)
-                c["split_ms"] = {
-                    s: graph_ms(lambda s=s: cuda_conv_stats._launch(
-                        x, wb, splits=s), 20)
-                    for s in (1, 2, 4) if steps % s == 0 and steps >= 8 * s}
-                c["splits"] = cuda_conv_stats.plan(x, cout)[1]
-                stats_cases.append(c)
-                log(f"[kernel] conv_stats {json.dumps(c)}")
-                log(f"[kernel] conv_stats {shape}: {rate(c)}; depth split "
-                    f"{c['splits']}, ms by split {c['split_ms']}")
+                stats_cases.append(stats_case(x, wb, model="dcgan_celeba64",
+                                              layer=i))
             x = ref
+    # kernel 5 at this slice's new batches: 256 (the flagship,
+    # dcgan_celeba64_fast) and 64 (a grad_accum=2 microbatch of 128), on
+    # the same seeded D's activations (its eval layers' plain versions)
+    batch_stats_cases = []
+    with torch.no_grad():
+        for nb in (256, 64):
+            x = torch.from_numpy(train_data["images"][:nb]).to(dev)
+            x = (x.float() / 127.5 - 1.0).to(bf)
+            for i, blk in enumerate(d0.blocks):
+                wb = blk.conv.w.to(bf).contiguous()
+                if blk.bn is not None:
+                    batch_stats_cases.append(stats_case(
+                        x, wb, model="dcgan_celeba64", layer=i, batch=nb))
+                    a, b = bn_affine(blk.bn.scale, blk.bn.bias, blk.bn.mean,
+                                     blk.bn.var, blk.bn.eps)
+                else:
+                    a = torch.ones(wb.shape[3], device=dev)
+                    b = blk.conv.b.float()
+                x = cuda_conv.conv_affine_act_plain(x, wb, a, b,
+                                                    act="leaky_relu")
     # the new paths' kernel-4 shapes: the conditional D's first layer (the
     # image and its label plane, Cin 4: the narrow path) at 64 px, and the
     # spectrally normalized 32 px D's three layers on W / sigma (sigma from
@@ -906,8 +1031,10 @@ def main() -> int:
             bound_by=bound_ms(tot["flops"], tot["bytes"])[1],
             library_ms=tot["library_ms"],
             library_device_ms=tot["library_device_ms"], cases=cases)
-    # the totals stay dcgan_celeba64's four layers; the new shapes are cases
+    # the totals stay dcgan_celeba64's layers at batch 128; the new shapes
+    # and batches are cases
     report["conv_affine_act"]["cases"] += new_conv_cases
+    report["conv_stats"]["cases"] += batch_stats_cases
 
     # conv_bn_stats's backward (PyTorch's conv gradients of the unfused VJP)
     # against autograd through the plain composition, at the first BN
@@ -1102,7 +1229,8 @@ def main() -> int:
 
     def trainer(mode):
         c = tcfg.override({"train.fuse_stats": mode, "train.out_dir":
-                           str(ROOT / "chiprun_out" / f"smoke_train_{mode}")})
+                           str(ROOT / "chiprun_out" / f"smoke_train_{mode}"),
+                           "train.ckpt_dir": str(RUNS / f"train_{mode}")})
         return Trainer(c, data=train_data, device=dev)
 
     t_off, t_on = trainer("off"), trainer("on")
@@ -1195,14 +1323,16 @@ def main() -> int:
 
     def slice_cfg(preset: str, run: str, **over):
         """``preset`` at its full width on the synthetic dataset, as phase
-        5 runs dcgan_celeba64: no checkpoints, grids by megakernel v2,
-        every step logged to chiprun_out/smoke_RUN."""
+        5 runs dcgan_celeba64: a checkpoint at the end of each train() call
+        only (under runs/smoke/RUN), grids by megakernel v2, every step
+        logged to chiprun_out/smoke_RUN."""
         return get_preset(preset).override({
             "data.dataset": "synthetic",
             "data.synthetic_size": 10 * TRAIN_BATCH,
             "train.ckpt_every": 0, "train.kernels": "pallas",
             "train.log_every": 1,
             "train.out_dir": str(ROOT / "chiprun_out" / f"smoke_{run}"),
+            "train.ckpt_dir": str(RUNS / run),
             **{f"train.{k}": v for k, v in over.items()}})
 
     def logged(cfg) -> list:
@@ -1362,7 +1492,270 @@ def main() -> int:
         f"on the narrow path")
     del c_tr, cd
 
-    # -- 10. report ---------------------------------------------------------
+    # -- 10. the flagship: dcgan_celeba64_fast at full width ----------------
+    # FusedProp, 50 steps a call, the dataset resident on the card, batch
+    # 256; two calls, a checkpoint after each, the second call profiled
+    zero_counts()
+    k_fast = 50
+    fcfg = get_preset("dcgan_celeba64_fast").override({
+        "data.dataset": "synthetic", "data.synthetic_size": 20 * BATCH,
+        "train.total_steps": 2 * k_fast, "train.ckpt_every": k_fast,
+        "train.profile_steps": 1, "train.log_every": k_fast,
+        "train.fuse_stats": "on", "train.kernels": "pallas",
+        "train.out_dir": str(RUNS / "fast"),
+        "train.ckpt_dir": str(RUNS / "fast_ckpt")})
+    require(fcfg.model.nz == 100 and fcfg.model.ngf == 64
+            and fcfg.model.ndf == 64 and fcfg.data.batch_size == BATCH
+            and fcfg.train.fused_prop and fcfg.data.device_resident
+            and fcfg.train.steps_per_call == k_fast
+            and fcfg.data.sampling == "replacement"
+            and fcfg.train.precision == "bf16" and fcfg.data.hflip,
+            "not the full-width dcgan_celeba64_fast configuration")
+    fdata = load_dataset("synthetic", image_size=64, channels=3,
+                         synthetic_size=fcfg.data.synthetic_size,
+                         seed=fcfg.train.seed)
+    log(f"[fast] resident dataset {fdata['images'].shape} "
+        f"{fdata['images'].nbytes / 1e6:.1f} MB")
+    ftr = Trainer(fcfg, data=fdata, device=dev)
+
+    def no_pipeline(*args, **kwargs):
+        raise AssertionError("the resident run built the host pipeline")
+
+    # no image batch crosses from the host after the upload: the host
+    # pipeline is never built
+    host_pipeline = trainer_mod.make_input_pipeline
+    trainer_mod.make_input_pipeline = no_pipeline
+    try:
+        fast_logged = ftr.train()
+    finally:
+        trainer_mod.make_input_pipeline = host_pipeline
+    counts = read_counts("train dcgan_celeba64_fast")
+    require(ftr.state.step == 2 * k_fast, f"step {ftr.state.step}")
+    require(counts["conv_stats"] == 6 * ftr.state.step,
+            f"{counts['conv_stats']} conv_stats launches in "
+            f"{ftr.state.step} FusedProp steps, not 6 a step")
+    require(counts["v2"] > 0, "no sample grid on the flagship's path")
+    require(all(np.isfinite(v) for v in fast_logged.values()),
+            f"non-finite logged metrics {fast_logged}")
+    fast_steps = CheckpointManager(fcfg.train.ckpt_dir).all_steps()
+    require(fast_steps == [k_fast, 2 * k_fast],
+            f"flagship checkpoints {fast_steps}")
+    traces = sorted((RUNS / "fast" / "prof").glob("*.json.gz"))
+    require(len(traces) == 1 and traces[0].stat().st_size > 0,
+            f"profiler traces {traces}")
+    log(f"[fast] {ftr.state.step} steps in {2} calls; checkpoints "
+        f"{fast_steps}; trace {traces[0].name} "
+        f"{traces[0].stat().st_size / 1e6:.2f} MB; last logged "
+        f"{fast_logged}")
+    # one call of 50 steps by CUDA events, in turns with a second, then
+    # under the profiler (the measurements' launches are not the path's)
+    resident = next(iter(ftr._batches(fdata)))
+    fast_ms = [events_ms(lambda: ftr.step_fn(ftr.state, resident)) / k_fast
+               for _ in range(2)]
+    fast_prof = profile_run(lambda: events_ms(
+        lambda: ftr.step_fn(ftr.state, resident)) / k_fast, k_fast,
+        "dcgan_celeba64_fast", top=10)
+    log(f"[fast] {sum(fast_ms) / 2:.4f} ms/step "
+        f"({BATCH * 1e3 / (sum(fast_ms) / 2):.1f} images/s; calls "
+        f"{', '.join(f'{t:.4f}' for t in fast_ms)} ms/step); under the "
+        f"profiler device busy {100 * fast_prof['busy_share']:.1f}%, "
+        f"{fast_prof['kernels']:.0f} kernels/step; card {card()}")
+    # one FusedProp step's D against one alternating step's from one seed:
+    # the same batch and z_d, so the same D update (the G updates differ:
+    # FusedProp's uses the pre-update D; and the alternating G step's D
+    # forward moves D's BatchNorm statistics a third time, so the
+    # parameters are compared)
+    one = fcfg.override({"train.steps_per_call": 1, "train.total_steps": 1,
+                         "train.profile_steps": 0})
+    pair = {m: Trainer(one.override({"train.fused_prop": m == "fused"}),
+                       data=fdata, device=dev) for m in ("fused", "alt")}
+    zf = torch.from_numpy(seeded_noise(100, BATCH, seed=3)).to(dev)
+    fb = {"image": torch.from_numpy(fdata["images"][:BATCH]).to(dev),
+          "z_d": zf, "z_g": zf}
+    one_m = {m: {k: v.item() for k, v in tr.step_fn(tr.state, fb)[1].items()}
+             for m, tr in pair.items()}
+    d_diff = max((p - q).abs().max().item() for p, q in zip(
+        pair["fused"].d.parameters(), pair["alt"].d.parameters()))
+    for k in ("loss_d", "d_real", "d_fake"):
+        require(abs(one_m["fused"][k] - one_m["alt"][k]) <= 1e-2,
+                f"FusedProp vs alternating step 1 {k}: {one_m}")
+    # phase 5's bound, 1e-2, on D's parameters
+    require(d_diff <= 1e-2, f"FusedProp's D differs by {d_diff}")
+    log(f"[fast] one FusedProp step vs one alternating step, same batch "
+        f"and z_d: D's parameters max diff {d_diff:.3e}; losses {one_m}")
+    del ftr, pair, resident, fdata
+
+    # -- 11. state and resume: EMA, linear LR, checkpoints -----------------
+    # full-width dcgan_celeba64 at batch 128: ema 0.999 and a linear LR that
+    # decays from step 5 of 10; a checkpoint every 5 steps.  cuDNN in its
+    # deterministic mode, and kernel 5 has no atomics, so a resumed run is
+    # the uninterrupted one bit for bit
+    zero_counts()
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    scfg = tcfg.override({
+        "train.ema": 0.999, "optim.schedule": "linear",
+        "train.total_steps": 10, "train.ckpt_every": 5,
+        "train.sample_every": 0, "train.out_dir": str(RUNS / "state"),
+        "train.ckpt_dir": str(RUNS / "state_ckpt")})
+    live = Trainer(scfg, data=train_data, device=dev)
+    live.train()
+    state_steps = CheckpointManager(scfg.train.ckpt_dir).all_steps()
+    require(state_steps == [5, 10], f"checkpoints {state_steps}")
+    fresh = Trainer(scfg, data=train_data, device=dev)
+    require(fresh.restore(scfg.train.ckpt_dir) == 10, "restored step")
+    require(states_equal(live.state, fresh.state),
+            f"the restored step-10 state differs from the live one by "
+            f"{max_state_diff(live.state, fresh.state)}")
+    resumed = Trainer(scfg.override({
+        "train.ckpt_dir": str(RUNS / "state_resumed")}), data=train_data,
+        device=dev)
+    require(resumed.restore(scfg.train.ckpt_dir, step=5) == 5, "step 5")
+    resumed.train(10)
+    lrs = {m: [(tr.state.opt_g.param_groups[0]["lr"],
+                tr.state.opt_d.param_groups[0]["lr"])]
+           for m, tr in (("live", live), ("resumed", resumed))}
+    resume_diff = max_state_diff(live.state, resumed.state)
+    require(resumed.state.step == live.state.step == 10
+            and np.array_equal(resumed.state.rng, live.state.rng),
+            "resumed step or key")
+    require(lrs["live"] == lrs["resumed"]
+            and 0 < lrs["live"][0][1] < scfg.optim.lr_d,
+            f"LRs after the run {lrs}")
+    log(f"[state] resume from step 5 to 10 vs the uninterrupted run: key, "
+        f"step and LRs {lrs['live']} exact; tensors max diff "
+        f"{resume_diff:.3e}")
+    require(states_equal(live.state, resumed.state),
+            f"the resumed run differs from the uninterrupted one by "
+            f"{resume_diff}")
+    # grids from the EMA of G (with G's live BN statistics) and from G,
+    # both through megakernel v2
+    v2_before = cuda_gen2.launches
+    gz = Sampler(scfg, live.g).noise(64, seed=0)
+    ema_grid = live.sampler().sample_fixed(gz)
+    g_grid = Sampler(scfg, live.g).sample_fixed(gz)
+    require(cuda_gen2.launches == v2_before + 2, "grids not on v2")
+    grid_diff = float(np.abs(ema_grid - g_grid).max())
+    require(grid_diff > 0 and np.isfinite(ema_grid).all(),
+            f"the EMA grid and G's differ by {grid_diff}")
+    log(f"[state] grid from g_ema vs from G: max |diff| {grid_diff:.4f}")
+    del fresh, resumed
+    # halt_on_nonfinite: one D weight poisoned with NaN
+    hcfg = scfg.override({"train.halt_on_nonfinite": True,
+                          "train.ckpt_every": 0, "train.log_every": 1,
+                          "train.ckpt_dir": str(RUNS / "halt")})
+    ht = Trainer(hcfg, data=train_data, device=dev)
+    ht.train(2)
+    with torch.no_grad():
+        ht.d.blocks[1].conv.w[0, 0, 0, 0] = float("nan")
+    try:
+        ht.train(6)
+        halted = ""
+    except NonFiniteLossError as e:
+        halted = str(e)
+    halt_step = CheckpointManager(hcfg.train.ckpt_dir).latest_step()
+    require(bool(halted) and halt_step == 3,
+            f"halt: {halted!r}, checkpoint at {halt_step}")
+    log(f"[state] halt_on_nonfinite: {halted}")
+    del ht
+    # SIGTERM from a thread mid-run: a checkpoint, train() returns, resume
+    pcfg = scfg.override({"train.total_steps": 100_000,
+                          "train.ckpt_every": 0, "train.log_every": 0,
+                          "train.ckpt_dir": str(RUNS / "preempt")})
+    pt = Trainer(pcfg, data=train_data, device=dev)
+    handler = signal.getsignal(signal.SIGTERM)
+
+    def preempt():
+        while pt.state.step < 3:
+            time.sleep(0.01)
+        os.kill(os.getpid(), signal.SIGTERM)
+
+    sender = threading.Thread(target=preempt, daemon=True)
+    sender.start()
+    pt.train()
+    sender.join(timeout=60)
+    stopped = pt.state.step
+    require(not sender.is_alive() and 3 <= stopped < 100_000,
+            f"SIGTERM: stopped at {stopped}")
+    require(signal.getsignal(signal.SIGTERM) is handler,
+            "the SIGTERM handler was not put back")
+    require(CheckpointManager(pcfg.train.ckpt_dir).latest_step() == stopped,
+            "no checkpoint at the preempted step")
+    rt = Trainer(pcfg.override({"train.resume": pcfg.train.ckpt_dir}),
+                 data=train_data, device=dev)
+    rt.train(stopped + 2)
+    require(rt.state.step == stopped + 2, f"resumed to {rt.state.step}")
+    log(f"[state] SIGTERM at step {stopped}: checkpoint saved, train() "
+        f"returned; resumed to {rt.state.step}")
+    del pt, rt
+    # the card's step-10 checkpoint restores into a CPU Trainer
+    cpu_tr = Trainer(scfg, data=train_data, device="cpu")
+    require(cpu_tr.restore(scfg.train.ckpt_dir, step=10) == 10, "CPU step")
+    require(states_equal(live.state, cpu_tr.state),
+            "the card's checkpoint restored on the CPU differs")
+    log("[state] the card's step-10 checkpoint restored into a CPU Trainer "
+        "bit for bit")
+    torch.backends.cudnn.deterministic = False
+    counts = read_counts("train dcgan_celeba64 ema + linear + resume")
+    require(counts["conv_stats"] > 0 and counts["v2"] > 0,
+            "phase 11 launched no kernel 5 or no v2")
+    del live, cpu_tr
+
+    # -- 12. grad_accum and remat: dcgan_celeba64, batch 128 ---------------
+    zero_counts()
+    acfg = tcfg.override({"train.grad_accum": 2, "train.sample_every": 0,
+                          "train.out_dir": str(RUNS / "accum"),
+                          "train.ckpt_dir": str(RUNS / "accum_ckpt")})
+    at = Trainer(acfg, data=train_data, device=dev)
+    accum_logged = at.train(3)
+    counts = read_counts("train dcgan_celeba64 grad_accum=2")
+    require(counts["conv_stats"] == 18 * at.state.step,
+            f"{counts['conv_stats']} conv_stats launches in "
+            f"{at.state.step} steps under grad_accum=2, not 18 a step")
+    require(all(np.isfinite(v) for v in accum_logged.values()),
+            f"non-finite logged metrics {accum_logged}")
+    del at
+    mem, first = {}, {}
+    rtr = {}
+    for mode in ("plain", "remat"):
+        zero_counts()
+        rtr[mode] = Trainer(tcfg.override({
+            "train.remat": mode == "remat", "train.sample_every": 0,
+            "train.out_dir": str(RUNS / mode),
+            "train.ckpt_dir": str(RUNS / f"{mode}_ckpt")}),
+            data=train_data, device=dev)
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        first[mode] = rtr[mode].train(1)
+        peak = torch.cuda.max_memory_allocated(dev)
+        mem[mode] = (peak, peak - before)
+        counts = read_counts(f"train dcgan_celeba64 {mode}")
+    # remat: 9 launches in the forwards and 9 in the recomputed ones (the
+    # D step's real and fake forwards, the G step's fake forward)
+    require(counts["conv_stats"] == 18,
+            f"{counts['conv_stats']} conv_stats launches in a remat step, "
+            f"not 9 + 9 recomputed")
+    for k in ("loss_d", "loss_g", "d_real", "d_fake"):
+        require(abs(first["remat"][k] - first["plain"][k]) <= 1e-2,
+                f"remat step 1 {k}: {first}")
+    p_diff = max((p - q).abs().max().item() for p, q in zip(
+        rtr["remat"].d.state_dict().values(),
+        rtr["plain"].d.state_dict().values()))
+    p_diff = max(p_diff, max((p - q).abs().max().item() for p, q in zip(
+        rtr["remat"].g.state_dict().values(),
+        rtr["plain"].g.state_dict().values())))
+    require(p_diff <= 1e-2, f"remat's step 1 differs by {p_diff}")
+    log(f"[remat] step 1 remat vs plain: losses {first}; G and D max diff "
+        f"{p_diff:.3e}; 18 conv_stats launches (9 + 9 recomputed)")
+    log(f"[remat] peak memory (max_memory_allocated, then above what was "
+        f"allocated before the step): plain {mem['plain'][0] / 2**20:.1f} / "
+        f"{mem['plain'][1] / 2**20:.1f} MiB, remat "
+        f"{mem['remat'][0] / 2**20:.1f} / {mem['remat'][1] / 2**20:.1f} MiB; "
+        f"card {card()}")
+    del rtr
+
+    # -- 13. report ---------------------------------------------------------
     for key, rep_k in report.items():
         by_path = {p: c[key] for p, c in path_counts.items() if c[key]}
         rep_k["launches"] = sum(by_path.values())
@@ -1378,10 +1771,7 @@ def main() -> int:
         k["includes"] = includes(k["source"].rsplit("/", 1)[1])
     log(f"[done] total {time.time() - t_start:.1f}s")
     print(json.dumps({"kernels": kernels}))
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60, check=True)
-    print(smi.stdout.strip().splitlines()[0])
+    print(card())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -68,3 +68,101 @@ def module_arrays(module):
     """{dotted name: float32 numpy} of a port module's params and buffers."""
     return {k: v.detach().float().numpy()
             for k, v in module.state_dict().items()}
+
+
+def run_twin_steps(preset, overrides, calls=3, resident=False, seed=5):
+    """``calls`` calls of the JAX train step and the port's from one carried
+    state (``twin_train_states``), on the same synthetic uint8 batches: a
+    fresh slice a call (K = ``train.steps_per_call`` stacked slices when
+    K > 1), or the whole dataset held resident.  Returns (JAX state on the
+    host, port state, JAX metrics, port metrics), the metrics as floats a
+    call."""
+    from tpugan import ops as jax_ops
+    from tpugan.data.datasets import make_synthetic
+    from tpugan.train.steps import build_train_step
+    from tpugan_torch.train.steps import build_train_step as port_step
+
+    cfg, g, d, jstate, pcfg, pstate = twin_train_states(preset, overrides)
+    k, bsz = max(cfg.train.steps_per_call, 1), cfg.data.batch_size
+    cond = cfg.model.arch == "cdcgan"
+    n = cfg.data.synthetic_size if resident else calls * k * bsz
+    data = make_synthetic(cfg.model.image_size, cfg.model.channels, n,
+                          seed=seed, n_classes=max(cfg.model.n_classes, 0))
+    jax_ops.set_fuse_stats(cfg.train.fuse_stats)
+    try:
+        jstep = build_train_step(cfg, g, d)
+        pstep = port_step(pcfg, pstate.g, pstate.d)
+        jms, pms = [], []
+        for i in range(calls):
+            if resident:
+                batch = {"dataset_images": data["images"]}
+                if cond:
+                    batch["dataset_labels"] = data["labels"]
+            else:
+                part = slice(i * k * bsz, (i + 1) * k * bsz)
+                lead = (k, bsz) if k > 1 else (bsz,)
+                batch = {"image": data["images"][part].reshape(
+                    lead + data["images"].shape[1:])}
+                if cond:
+                    batch["label"] = data["labels"][part].reshape(lead)
+            jstate, jm = jstep(jstate, {key: jnp.asarray(v)
+                                        for key, v in batch.items()})
+            pstate, pm = pstep(pstate, {key: torch.from_numpy(v)
+                                        for key, v in batch.items()})
+            jms.append({key: float(v) for key, v in jm.items()})
+            pms.append({key: v.item() for key, v in pm.items()})
+    finally:
+        jax_ops.set_fuse_stats("off")
+    return jax.device_get(jstate), pstate, jms, pms
+
+
+def assert_metrics_close(jms, pms, rtol=1e-4, atol=1e-4):
+    """Each call's logged metrics, JAX's against the port's."""
+    for i, (jm, pm) in enumerate(zip(jms, pms)):
+        assert sorted(jm) == sorted(pm)
+        for key, v in jm.items():
+            np.testing.assert_allclose(pm[key], v, rtol=rtol, atol=atol,
+                                       err_msg=f"call {i} {key}")
+
+
+def assert_state_close(jstate, pstate, atol, buf_tol=1e-4):
+    """Parameters within ``atol``, BatchNorm statistics and spectral norm's
+    u within ``buf_tol`` (relative and absolute), the EMA of G within
+    ``atol``; the step and the key exact."""
+    from tpugan_torch.ckpt.from_jax import flatten
+
+    mods = [(pstate.g, jstate.params_g, jstate.state_g),
+            (pstate.d, jstate.params_d, jstate.state_d)]
+    if jstate.params_g_ema is not None:
+        mods.append((pstate.g_ema, jstate.params_g_ema, {}))
+    for mod, params, st in mods:
+        arrays = module_arrays(mod)
+        for k, v in flatten(to_numpy(params)).items():
+            np.testing.assert_allclose(arrays[k], v, rtol=0, atol=atol,
+                                       err_msg=k)
+        for k, v in flatten(to_numpy(st)).items():
+            np.testing.assert_allclose(arrays[k], v, rtol=buf_tol,
+                                       atol=buf_tol, err_msg=k)
+    assert pstate.step == int(jstate.step)
+    np.testing.assert_array_equal(pstate.rng, np.asarray(jstate.rng))
+
+
+def port_states_equal(a, b):
+    """Two port TrainStates hold the same bits: modules, EMA, both
+    optimizers' moments and counts, key and step."""
+    sa, sb = a.state_dict(), b.state_dict()
+    assert sa["step"] == sb["step"] and sa["rng"] == sb["rng"]
+    for key in ("g", "d", "g_ema"):
+        if sa[key] is None or sb[key] is None:
+            assert sa[key] is None and sb[key] is None, key
+            continue
+        assert sorted(sa[key]) == sorted(sb[key])
+        for name, t in sa[key].items():
+            assert torch.equal(t, sb[key][name]), f"{key}.{name}"
+    for key in ("opt_g", "opt_d"):
+        oa, ob = sa[key], sb[key]
+        assert oa["param_groups"] == ob["param_groups"], key
+        assert sorted(oa["state"]) == sorted(ob["state"])
+        for p, st in oa["state"].items():
+            for name, t in st.items():
+                assert torch.equal(t, ob["state"][p][name]), (key, p, name)

@@ -301,6 +301,10 @@ NEW_D_SHAPES = [(2, 64, 64, 4, 64), (2, 32, 32, 3, 64), (2, 16, 16, 64, 128),
 # 8x8x256 -> 4x4x512, over a cluster of 4)
 STATS_SHAPES = CONV_SHAPES + [(3, 12, 20, 96, 136), (2, 32, 32, 64, 128),
                               (4, 8, 8, 256, 512)]
+# the main path's three BN layers at the flagship's batch (256,
+# dcgan_celeba64_fast) and at a grad_accum=2 microbatch of 128 (64)
+BATCH_STATS_SHAPES = [(n, h, h, cin, 2 * cin) for n in (256, 64)
+                      for h, cin in ((32, 64), (16, 128), (8, 256))]
 
 
 def _conv_operands(cuda, n, h, w, cin, cout, seed):
@@ -344,7 +348,7 @@ def test_conv_kernel_gives_the_same_bits_twice(cuda, n, h, w, cin, cout):
     assert torch.equal(runs[0], runs[1])
 
 
-@pytest.mark.parametrize("n,h,w,cin,cout", STATS_SHAPES)
+@pytest.mark.parametrize("n,h,w,cin,cout", STATS_SHAPES + BATCH_STATS_SHAPES)
 def test_conv_stats_kernel_matches_plain(cuda, n, h, w, cin, cout):
     _, x, wt = _conv_operands(cuda, n, h, w, cin, cout, n * 10 + cout)
     x = (x.float() + 0.5).to(BF)  # an offset mean: E[y^2] - mean^2 cancels
@@ -430,6 +434,112 @@ def test_conv_bn_stats_backward_matches_autograd_of_plain(cuda):
     for got, ref in ((gx, gx_ref), (gw, gw_ref)):
         err = (got.float() - ref).abs().max().item()
         assert err <= 3e-2 * ref.abs().max().item(), err
+
+
+def _bn_stats_case(cuda, seed=7):
+    """A BN layer's operands (fp32 and their bf16 leaves) and two
+    cotangent weights for the pulled losses of the backward tests."""
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    x32 = _rand((4, 16, 16, 64), gen, cuda)
+    w32 = _rand((4, 4, 64, 128), gen, cuda, 0.05)
+    cws = [_rand((128,), gen, cuda) for _ in range(2)]
+    return x32, w32, cws
+
+
+def _pulled(y, m, v, cw):
+    return ((torch.tanh(y.float()) * cw).sum() + (m * cw ** 2).sum()
+            + torch.sqrt(v + 1.0).sum())
+
+
+def _plain_grads(x32, w32, cw):
+    xr, wr = x32.clone().requires_grad_(), w32.clone().requires_grad_()
+    y = cuda_conv.conv421_plain(xr, wr)
+    m = y.mean(dim=(0, 1, 2))
+    v = torch.clamp((y * y).mean(dim=(0, 1, 2)) - m * m, min=0.0)
+    return torch.autograd.grad(_pulled(y, m, v, cw), (xr, wr))
+
+
+def _assert_grads_close(got, ref):
+    # bf16 operands, cotangent and gradient: a few percent of the scale
+    for g, r in zip(got, ref):
+        err = (g.float() - r).abs().max().item()
+        assert err <= 3e-2 * r.abs().max().item(), err
+
+
+def test_conv_bn_stats_backward_twice_on_one_graph(cuda):
+    """FusedProp's two pulls: two cotangents through one forward's saved
+    context (``retain_graph``), each against the plain composition's
+    gradients; one kernel launch for both."""
+    x32, w32, cws = _bn_stats_case(cuda)
+    xb = x32.to(BF).requires_grad_()
+    wb = w32.to(BF).requires_grad_()
+    before = cuda_conv_stats.launches
+    out = cuda_conv_stats.conv_bn_stats(xb, wb)
+    first = torch.autograd.grad(_pulled(*out, cws[0]), (xb, wb),
+                                retain_graph=True)
+    second = torch.autograd.grad(_pulled(*out, cws[1]), (xb, wb))
+    assert cuda_conv_stats.launches == before + 1
+    torch.cuda.synchronize()
+    _assert_grads_close(first, _plain_grads(x32, w32, cws[0]))
+    _assert_grads_close(second, _plain_grads(x32, w32, cws[1]))
+    assert not torch.equal(first[0], second[0])
+
+
+def test_conv_bn_stats_backward_under_recomputation(cuda):
+    """``train.remat``: under ``torch.utils.checkpoint`` the backward
+    relaunches the kernel (the recomputed forward) and gives the stored
+    forward's gradients bit for bit (no atomics), the plain composition's
+    within the bf16 limit."""
+    from torch.utils.checkpoint import checkpoint
+
+    x32, w32, cws = _bn_stats_case(cuda, seed=8)
+    grads = {}
+    for remat in (False, True):
+        xb = x32.to(BF).requires_grad_()
+        wb = w32.to(BF).requires_grad_()
+        before = cuda_conv_stats.launches
+
+        def f(x, w):
+            return _pulled(*cuda_conv_stats.conv_bn_stats(x, w), cws[0])
+
+        loss = (checkpoint(f, xb, wb, use_reentrant=False) if remat
+                else f(xb, wb))
+        grads[remat] = torch.autograd.grad(loss, (xb, wb))
+        assert cuda_conv_stats.launches == before + (2 if remat else 1)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(grads[False], grads[True]))
+    _assert_grads_close(grads[True], _plain_grads(x32, w32, cws[0]))
+
+
+def test_card_checkpoint_restores_on_the_cpu(cuda, tmp_path):
+    """A Trainer's checkpoint saved on the card restores into a CPU
+    Trainer: the same bits, every tensor on the CPU."""
+    from tpugan_torch.train.trainer import Trainer
+
+    cfg = get_preset("dcgan_celeba64").override({
+        "data.dataset": "synthetic", "data.synthetic_size": 32,
+        "data.batch_size": 8, "model.ngf": 8,
+        "model.ndf": 8, "model.nz": 16, "train.fuse_stats": "on",
+        "train.ema": 0.9, "optim.schedule": "linear",
+        "train.total_steps": 4, "train.sample_every": 0,
+        "train.out_dir": str(tmp_path / "out"),
+        "train.ckpt_dir": str(tmp_path / "ckpt")})
+    card = Trainer(cfg, device=cuda)
+    card.train(3)
+    cpu = Trainer(cfg, device="cpu")
+    assert cpu.restore(cfg.train.ckpt_dir) == 3
+    got, want = cpu.state.state_dict(), card.state.state_dict()
+    assert got["rng"] == want["rng"]
+    for part in ("g", "d", "g_ema"):
+        for k, t in want[part].items():
+            assert got[part][k].device.type == "cpu"
+            assert torch.equal(got[part][k], t.cpu()), f"{part}.{k}"
+    for part in ("opt_g", "opt_d"):
+        assert got[part]["param_groups"] == want[part]["param_groups"]
+        for i, st in want[part]["state"].items():
+            for k, t in st.items():
+                assert got[part]["state"][i][k].device.type == "cpu"
+                assert torch.equal(got[part]["state"][i][k], t.cpu())
 
 
 def test_conv_kernels_refuse_what_they_do_not_take(cuda):

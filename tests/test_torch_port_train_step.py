@@ -2,7 +2,8 @@
 one ``TrainState`` carried across (``ckpt/from_jax.load_jax_train_state``),
 in fp32 on the same uint8 batches: the logged losses at each of three steps,
 and the parameters and BatchNorm running statistics after one and after
-three steps, with fuse_stats on and off.
+three steps, with fuse_stats on and off; then the step options (FusedProp,
+grad_accum, remat, steps_per_call) the same way.
 
 Tolerances: each step's gradients differ from JAX's by fp32 sum order only
 (~1e-6 relative).  Adam and RMSprop divide a gradient by its own running
@@ -31,11 +32,14 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_port_common import module_arrays, to_numpy, twin_train_states
+from _torch_port_common import (assert_metrics_close, assert_state_close,
+                                module_arrays, port_states_equal,
+                                run_twin_steps, to_numpy, twin_train_states)
 from tpugan import ops as jax_ops
 from tpugan.data.datasets import make_synthetic
 from tpugan.train.steps import build_train_step
 from tpugan_torch.ckpt.from_jax import flatten
+from tpugan_torch.configs import get_preset as port_preset
 from tpugan_torch.train.steps import build_train_step as port_step
 
 CASES = [
@@ -163,3 +167,111 @@ def test_parity_hooks_replace_the_draws():
         "image": torch.from_numpy(data["images"]),
         "label": torch.from_numpy(data["labels"])})
     assert drawn["gp"].item() != pm["gp"].item()
+
+
+# -- the step options: FusedProp, grad_accum, remat, steps_per_call --------
+
+TINY = {"model.ngf": 8, "model.ndf": 8, "model.nz": 12,
+        "data.batch_size": 6, "train.precision": "fp32"}
+
+FUSED = [
+    ("dcgan_celeba64", {"train.fuse_stats": "on"}),
+    ("dcgan_celeba64", {"train.fuse_stats": "off"}),
+    ("sngan_cifar10", {}),
+    ("cdcgan_celeba64", {"optim.eps": 1e-4}),
+]
+
+
+@pytest.mark.parametrize("preset,over", FUSED,
+                         ids=["dcgan_celeba64_fuse_on",
+                              "dcgan_celeba64_fuse_off", "sngan_cifar10",
+                              "cdcgan_celeba64"])
+def test_fused_prop_matches_jax(preset, over):
+    """FusedProp: one G forward, D on the fake once, two pulls from that
+    graph, both updates from the pre-update D; three calls."""
+    over = {**TINY, **over, "train.fused_prop": True, "loss.n_critic": 1}
+    jstate, pstate, jms, pms = run_twin_steps(preset, over, calls=3)
+    assert_metrics_close(jms, pms)
+    assert_state_close(jstate, pstate, atol=2e-4 / 20)
+
+
+@pytest.mark.parametrize("over,match", [
+    ({"loss.kind": "wgan_gp"}, "fused_prop requires"),
+    ({"loss.n_critic": 2}, "fused_prop requires"),
+    ({"train.grad_accum": 2}, "grad_accum requires fused_prop off"),
+])
+def test_fused_prop_guards_raise(over, match):
+    cfg = port_preset("dcgan_cifar10").override(
+        {**TINY, "train.fused_prop": True, **over})
+    with pytest.raises(ValueError, match=match):
+        port_step(cfg, None, None)
+
+
+@pytest.mark.parametrize("preset,over", [
+    # the penalty on each microbatch with its split(k_gp, 2) key
+    ("wgan_gp_cifar10", {"loss.n_critic": 2}),
+    # BN statistics threading through microbatches of three images: with
+    # Adam's eps at 1e-4 (module doc), as a few G gradients of this case
+    # sit within sum-order noise of zero
+    ("dcgan_celeba64", {"train.fuse_stats": "on", "optim.eps": 1e-4}),
+], ids=["wgan_gp_cifar10", "dcgan_celeba64"])
+def test_grad_accum_matches_jax(preset, over):
+    over = {**TINY, **over, "train.grad_accum": 2}
+    jstate, pstate, jms, pms = run_twin_steps(preset, over, calls=3)
+    assert_metrics_close(jms, pms)
+    assert_state_close(jstate, pstate, atol=2e-4 / 20)
+
+
+@pytest.mark.parametrize("over,match", [
+    ({"train.grad_accum": 0}, "must be >= 1"),
+    ({"train.grad_accum": 4}, "not divisible"),
+])
+def test_grad_accum_guards_raise(over, match):
+    cfg = port_preset("dcgan_cifar10").override({**TINY, **over})
+    with pytest.raises(ValueError, match=match):
+        port_step(cfg, None, None)
+
+
+@pytest.mark.parametrize("preset,over", [
+    ("dcgan_cifar10", {}),
+    ("sngan_cifar10", {}),
+    # after two calls one G gradient of this case sits within fp32
+    # sum-order noise of zero, in the plain steps too (each package's remat
+    # step is its plain step bit for bit): Adam's eps at 1e-4 (module doc)
+    ("dcgan_celeba64", {"train.fuse_stats": "on", "optim.eps": 1e-4}),
+], ids=["dcgan_cifar10", "sngan_cifar10", "dcgan_celeba64_fuse_on"])
+def test_remat_matches_jax_and_the_plain_step(preset, over):
+    """``train.remat``: JAX's remat step within the usual tolerance, and
+    the port's own plain step bit for bit, BatchNorm statistics and
+    spectral norm's u included: the recomputation sees the buffers the
+    first forward saw and leaves them as it found them."""
+    over = {**TINY, **over}
+    jstate, rstate, jms, pms = run_twin_steps(
+        preset, {**over, "train.remat": True}, calls=2)
+    assert_metrics_close(jms, pms)
+    assert_state_close(jstate, rstate, atol=2e-4 / 20)
+    _, plain, _, plain_ms = run_twin_steps(preset, over, calls=2)
+    assert plain_ms == pms
+    for mod in ("g", "d"):
+        ref = module_arrays(getattr(plain, mod))
+        for k, v in module_arrays(getattr(rstate, mod)).items():
+            np.testing.assert_array_equal(v, ref[k], err_msg=f"{mod}.{k}")
+
+
+def test_steps_per_call_is_k_single_calls_and_jaxs_scan():
+    """K = 3 steps a call on stacked host batches: bit for bit three single
+    calls of the port's step, and the JAX scan's state and last metrics."""
+    over = {**TINY, "train.steps_per_call": 3, "train.total_steps": 6}
+    jstate, pstate, jms, pms = run_twin_steps("dcgan_cifar10", over,
+                                              calls=2)
+    assert_metrics_close(jms, pms)
+    assert_state_close(jstate, pstate, atol=2e-4 / 20)
+    *_, pcfg, single = twin_train_states("dcgan_cifar10", {
+        **over, "train.steps_per_call": 1})
+    step1 = port_step(pcfg, single.g, single.d)
+    data = make_synthetic(32, 3, 36, seed=5)
+    for i in range(6):
+        single, m = step1(single, {"image": torch.from_numpy(
+            data["images"][6 * i:6 * (i + 1)])})
+    assert {k: v.item() for k, v in m.items()} == pms[-1]
+    port_states_equal(single, pstate)

@@ -1,9 +1,10 @@
 """The port's ``Trainer`` against the JAX package's: ``train(3)`` from one
 carried state logs the same losses (``metrics.jsonl``, ``log_every=1``) on
-the synthetic dataset, with fuse_stats on and off, and ``train(2)`` of the
-conditional preset on the dataset's labels; the input pipeline yields the
-JAX pipeline's batches; options the port does not take raise, and so does
-conditional training on labels that are all zero."""
+the synthetic dataset, with fuse_stats on and off, ``train(2)`` of the
+conditional preset on the dataset's labels, and the fast preset (FusedProp,
+resident data, steps a call); the input pipeline yields the JAX pipeline's
+batches; options the port does not take raise, and so does conditional
+training on labels that are all zero; the options ported since train."""
 
 import json
 import os
@@ -128,22 +129,91 @@ def test_pipeline_yields_the_jax_pipelines_batches():
 
 
 @pytest.mark.parametrize("override,match", [
-    ({"train.ckpt_every": 10}, "ckpt_every"),
-    ({"train.resume": "runs/ckpt"}, "resume"),
+    ({"train.keep_best": True}, "keep_best"),
     ({"train.eval_every": 5}, "eval_every"),
     ({"train.mesh_shape": 2}, "mesh_shape"),
-    ({"train.fused_prop": True}, "fused_prop"),
-    ({"train.grad_accum": 2}, "grad_accum"),
-    ({"train.steps_per_call": 2}, "steps_per_call"),
+    ({"train.spatial_shards": 2}, "spatial_shards"),
+    ({"train.fsdp_shards": 2}, "fsdp_shards"),
     ({"train.augment": "color"}, "augment"),
-    ({"train.ema": 0.999}, "ema"),
-    ({"data.device_resident": True}, "device_resident"),
-    ({"optim.schedule": "linear"}, "linear"),
+    ({"train.augment": "translation,cutout"}, "augment"),
+    ({"train.ada_target": 0.6}, "ada_target"),
+    ({"data.dataset": "cifar10"}, "cifar10"),
+    ({"data.dataset": "mnist"}, "mnist"),
+    ({"data.dataset": "celeba"}, "celeba"),
 ])
-def test_unported_options_raise(override, match):
-    cfg = port_preset("dcgan_cifar10").override({**TINY, **override})
+def test_unported_options_raise(tmp_path, override, match):
+    cfg = port_preset("dcgan_cifar10").override(
+        {**TINY, "train.out_dir": str(tmp_path / "out"),
+         "train.ckpt_dir": str(tmp_path / "ckpt"), **override})
     with pytest.raises(NotImplementedError, match=match):
-        Trainer(cfg, device="cpu")
+        Trainer(cfg, device="cpu").train(1)
+
+
+@pytest.mark.parametrize("override", [
+    {"train.ckpt_every": 1},
+    {"train.resume": "RESUME"},
+    {"train.fused_prop": True},
+    {"train.grad_accum": 2},
+    {"train.steps_per_call": 2, "train.total_steps": 10},
+    {"train.ema": 0.999},
+    {"data.device_resident": True},
+    {"optim.schedule": "linear"},
+], ids=["ckpt_every", "resume", "fused_prop", "grad_accum",
+        "steps_per_call", "ema", "device_resident", "linear"])
+def test_ported_options_train(tmp_path, override):
+    """The options that raised before the port took them: each trains two
+    steps and leaves its final checkpoint."""
+    ckpt = str(tmp_path / "ckpt")
+    if override.get("train.resume"):
+        # a checkpoint to resume from
+        Trainer(port_preset("dcgan_cifar10").override(
+            {**TINY, "train.out_dir": str(tmp_path / "first"),
+             "train.ckpt_dir": ckpt}), device="cpu").train(1)
+        override = {"train.resume": ckpt}
+    cfg = port_preset("dcgan_cifar10").override(
+        {**TINY, "train.out_dir": str(tmp_path / "out"),
+         "train.ckpt_dir": ckpt, **override})
+    tr = Trainer(cfg, device="cpu")
+    tr.train(2)
+    assert tr.state.step == 2
+    assert [r["step"] for r in _metrics(tmp_path / "out")] == (
+        [2] if cfg.train.steps_per_call == 2 or cfg.train.resume else [1, 2])
+    assert os.path.exists(os.path.join(ckpt, "2.pt"))
+    if cfg.train.ckpt_every:
+        assert os.path.exists(os.path.join(ckpt, "1.pt"))
+
+
+def test_fast_preset_logs_the_jax_trainers_losses(tmp_path):
+    """dcgan_celeba64_fast at tiny widths (FusedProp, the dataset resident,
+    2 steps a call): the same losses at every call as the JAX trainer's."""
+    over = {**TINY, "data.synthetic_size": 16, "train.steps_per_call": 2,
+            "train.total_steps": 6}
+    jcfg = get_preset("dcgan_celeba64_fast").override(
+        {**over, "train.out_dir": str(tmp_path / "jax"),
+         "train.ckpt_dir": str(tmp_path / "jax_ckpt"),
+         "train.sample_every": 0})
+    pcfg = port_preset("dcgan_celeba64_fast").override(
+        {**over, "train.out_dir": str(tmp_path / "port"),
+         "train.ckpt_dir": str(tmp_path / "port_ckpt"),
+         "train.sample_every": 4, "train.kernels": "pallas"})
+    assert pcfg.train.fused_prop and pcfg.data.device_resident
+    try:
+        jt = JaxTrainer(jcfg)
+        pt = Trainer(pcfg, device="cpu")
+        load_jax_train_state(pt.state, jax.device_get(jt.state))
+        jt.train()
+        pt.train()
+    finally:
+        jax_ops.set_fuse_stats("off")
+    ref, got = _metrics(tmp_path / "jax"), _metrics(tmp_path / "port")
+    assert [r["step"] for r in got] == [2, 4, 6] == [r["step"] for r in ref]
+    for r, g in zip(ref, got):
+        for k in ("loss_d", "loss_g", "d_real", "d_fake", "gp"):
+            np.testing.assert_allclose(g[k], r[k], rtol=1e-4, atol=1e-4,
+                                       err_msg=f"step {g['step']} {k}")
+    pngs = sorted(p.name for p in (tmp_path / "port").glob("samples_*.png"))
+    assert pngs == ["samples_0000004.png", "samples_0000006.png"]
+    assert pt.state.step == 6
 
 
 def test_label_smoothing_is_refused_where_it_means_nothing():

@@ -8,7 +8,11 @@ sources in ``tpugan_torch/csrc``).  It imports nothing from ``tpugan`` and
 never imports ``jax``.
 
 Ported so far: the eval-mode generator serving path (configs, ops, nn,
-generator models, sampler, images, HTTP server, JAX-weight import).
+generator models, sampler, images, HTTP server, JAX-weight import) and
+single-device training of every preset on the synthetic dataset, with the
+whole training state (EMA, LR schedule, checkpoints and exact resume) and
+the step options (FusedProp, grad_accum, steps_per_call, remat, a
+device-resident dataset).
 """
 
 __version__ = "0.1.0"

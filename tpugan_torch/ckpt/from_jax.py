@@ -12,8 +12,8 @@ map: the dotted keys of params and state together are the module's
 so the optimizer moments still match ``named_parameters()``.
 
 ``load_jax_train_state`` carries a whole JAX ``TrainState`` (both modules,
-the optimizers' moments and counts, the run's key and step) into a port
-``TrainState``.  It reads the JAX state by field name and the optax states
+the EMA of G, the optimizers' moments and counts, the LR schedule's count,
+the run's key and step) into a port ``TrainState``.  It reads the JAX state by field name and the optax states
 by their fields, and imports nothing of JAX.
 """
 
@@ -66,25 +66,42 @@ def load_jax_module(module: torch.nn.Module, params: Mapping,
     return module
 
 
+def _schedule_count(opt_state):
+    """The update count of an optax chain under a schedule: the count of
+    its ``ScaleByScheduleState`` (optax 0.2.6: ``(ScaleByAdamState,
+    ScaleByScheduleState)`` for adam, ``(ScaleByRmsState,
+    ScaleByScheduleState, EmptyState)`` for rmsprop), or None for a
+    constant LR."""
+    for s in opt_state[1:]:
+        if type(s).__name__ == "ScaleByScheduleState":
+            return int(np.asarray(s.count))
+    return None
+
+
 @torch.no_grad()
 def _load_optimizer(opt: torch.optim.Optimizer, module: torch.nn.Module,
                     opt_state) -> None:
     # optax adam / rmsprop: (ScaleByAdamState(count, mu, nu), ...) or
-    # (ScaleByRmsState(nu), ...)
+    # (ScaleByRmsState(nu), ...), then the LR's state
     f = opt_state[0]._asdict()
     params = dict(module.named_parameters())
     nu = flatten(f["nu"])
     if sorted(nu) != sorted(params):
         raise KeyError(f"optimizer moments {sorted(nu)} do not match the "
                        f"parameters {sorted(params)}")
+    scheduled = _schedule_count(opt_state)
     if isinstance(opt, torch.optim.Adam):
         keys = {"exp_avg": flatten(f["mu"]), "exp_avg_sq": nu}
         count = float(np.asarray(f["count"]))
     elif isinstance(opt, torch.optim.RMSprop):
         keys = {"square_avg": nu}
-        count = 0.0  # optax's rms state keeps no count; torch's is unused
+        # optax's rms state keeps no count: under a schedule the schedule's
+        # is the update count; under a constant LR torch's is unused
+        count = 0.0
     else:
         raise TypeError(f"unsupported optimizer {type(opt).__name__}")
+    if scheduled is not None:
+        count = float(scheduled)
     for name, p in params.items():
         st = {"step": torch.tensor(count)}
         for key, tree in keys.items():
@@ -94,14 +111,22 @@ def _load_optimizer(opt: torch.optim.Optimizer, module: torch.nn.Module,
 
 def load_jax_train_state(state, jax_state):
     """Copy a JAX ``TrainState`` (host copy, e.g. ``jax.device_get`` of it)
-    into the port's ``TrainState`` in place; returns it.  Fields the port
-    does not carry (EMA, ADA) must be None."""
+    into the port's ``TrainState`` in place; returns it.  The EMA of G
+    (``params_g_ema``, with G's own BatchNorm state) goes into
+    ``state.g_ema``; both or neither must have one.  ADA's fields must be
+    None."""
     src = dict(jax_state)
-    for k in ("params_g_ema", "ada_p", "ada_rt"):
+    for k in ("ada_p", "ada_rt"):
         if src.get(k) is not None:
-            raise NotImplementedError(f"{k} is not ported yet")
+            raise NotImplementedError(f"{k} is not ported yet (ROADMAP.md, "
+                                      f"Queue A: 'Augment')")
+    if (src.get("params_g_ema") is None) != (state.g_ema is None):
+        raise ValueError("params_g_ema and the port state's g_ema disagree "
+                         "(train.ema must match)")
     load_jax_module(state.g, src["params_g"], src["state_g"])
     load_jax_module(state.d, src["params_d"], src["state_d"])
+    if state.g_ema is not None:
+        load_jax_module(state.g_ema, src["params_g_ema"], src["state_g"])
     _load_optimizer(state.opt_g, state.g, src["opt_g"])
     _load_optimizer(state.opt_d, state.d, src["opt_d"])
     state.rng = np.array(src["rng"], np.uint32)

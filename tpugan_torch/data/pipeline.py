@@ -8,6 +8,8 @@
 - The order is the JAX package's: epoch e is the permutation of
   ``default_rng(SeedSequence([seed, e]))``, so both packages see the same
   batches, and ``start_step`` resumes the stream where a run left off.
+- ``stack`` K > 1 yields K batches stacked on a leading axis, for a train
+  step that runs K steps a call (``train.steps_per_call``).
 """
 
 from __future__ import annotations
@@ -26,11 +28,11 @@ PREFETCH = 2  # batches the producer keeps ready
 
 class make_input_pipeline:
     """Iterator of {'image': uint8 NHWC, 'label': int32} tensors on
-    ``device``."""
+    ``device`` (with a leading axis of ``stack`` batches when > 1)."""
 
     def __init__(self, data: Dict[str, np.ndarray], batch_size: int, *,
                  seed: int = 0, with_labels: bool = True, device="cuda",
-                 start_step: int = 0):
+                 start_step: int = 0, stack: int = 1):
         self.images = data["images"]
         self.labels = data.get("labels") if with_labels else None
         self.batch_size = batch_size
@@ -41,6 +43,7 @@ class make_input_pipeline:
             raise ValueError(f"dataset size {n} < batch size {batch_size}")
         self.steps_per_epoch = n // batch_size  # the last partial batch drops
         self.start_step = int(start_step)
+        self.stack = max(stack, 1)
 
     def _host_batches(self) -> Iterator[Dict[str, np.ndarray]]:
         epoch, s0 = divmod(self.start_step, self.steps_per_epoch)
@@ -56,6 +59,15 @@ class make_input_pipeline:
                 yield batch
             epoch += 1
             s0 = 0
+
+    def _stacked_batches(self) -> Iterator[Dict[str, np.ndarray]]:
+        it = self._host_batches()
+        if self.stack == 1:
+            yield from it
+            return
+        while True:
+            group = [next(it) for _ in range(self.stack)]
+            yield {k: np.stack([b[k] for b in group]) for k in group[0]}
 
     def _to_device(self, a: np.ndarray) -> torch.Tensor:
         t = torch.from_numpy(a)
@@ -77,7 +89,7 @@ class make_input_pipeline:
 
         def produce():
             try:
-                for batch in self._host_batches():
+                for batch in self._stacked_batches():
                     if stop.is_set():
                         return
                     put({k: self._to_device(v) for k, v in batch.items()})

@@ -1,11 +1,12 @@
 """The JAX random draws the sampler's determinism contract rests on, in
 numpy: ``threefry2x32``, ``PRNGKey``, ``fold_in``, ``split``, ``uniform``,
-``normal``, ``truncated_normal`` and ``randint``, as JAX 0.9 computes them
-with ``jax_threefry_partitionable=True`` (``jax/_src/prng.py``,
-``jax/_src/random.py``).  Integer draws and uniform bits are bit-exact;
-normal draws run XLA's float32 ``erf_inv`` polynomial on those bits and
-differ from JAX by at most an ulp, where XLA's ``log1p`` or its fused
-multiply-adds round differently from numpy's.
+``normal``, ``truncated_normal``, ``randint`` and ``permutation``, as JAX
+0.9 computes them with ``jax_threefry_partitionable=True``
+(``jax/_src/prng.py``, ``jax/_src/random.py``).  Integer draws,
+permutations and uniform bits are bit-exact; normal draws run XLA's float32
+``erf_inv`` polynomial on those bits and differ from JAX by at most an ulp,
+where XLA's ``log1p`` or its fused multiply-adds round differently from
+numpy's.
 
 A key is a ``(..., 2)`` uint32 array; every function broadcasts over the
 leading axes, so n per-index keys draw in one vectorized call.
@@ -140,3 +141,17 @@ def randint(key, minval: int, maxval: int, shape=()) -> np.ndarray:
         mult = np.uint32((mult * mult) % span)
         off = ((hi % span) * mult + lo % span) % span
     return (np.int64(minval) + off.astype(np.int64)).astype(np.int32)
+
+
+def permutation(key, n: int) -> np.ndarray:
+    """``jax.random.permutation(key, n)`` for an int n: int32 (n,).  JAX
+    sorts ``arange(n)`` by fresh 32-bit random bits, stably, in
+    ``ceil(3 ln n / ln(2^32 - 1))`` rounds, splitting the key before each
+    (``jax/_src/random.py``, ``_shuffle``)."""
+    x = np.arange(n, dtype=np.int32)
+    rounds = int(np.ceil(3 * np.log(max(1, n))
+                         / np.log(np.iinfo(np.uint32).max)))
+    for _ in range(rounds):
+        key, sub = split(key, 2)
+        x = x[np.argsort(random_bits(sub, (n,)), kind="stable")]
+    return x

@@ -1,5 +1,4 @@
-"""The alternating D/G train step (port of the alternating path of
-``tpugan/train/steps.py``).
+"""The train step (port of ``tpugan/train/steps.py``).
 
 One call = one data batch = one D update, plus a G update when
 ``step % n_critic == n_critic - 1`` (every call for n_critic = 1):
@@ -11,18 +10,49 @@ One call = one data batch = one D update, plus a G update when
   running statistics and spectral norm's stored ``u``, nothing updated),
   D's optimizer step, and the WGAN weight clip.
 - G step: G forward, D on the fake in train mode (it updates D's BatchNorm
-  statistics, with the updated D), the G loss, G's optimizer step.  D's
-  parameters are frozen for that backward, so no gradient reaches them.
-
-The train-mode DBlock path ("on": the conv + BN-statistics kernel of
-``ops/cuda_conv_stats.py``; "auto": on for CUDA tensors) is each DBlock's
-own ``fuse_stats``, set from ``train.fuse_stats`` by ``build_models``.
+  statistics, with the updated D), the G loss, G's optimizer step, then the
+  EMA of G (``train.ema``).  D's parameters are frozen for that backward,
+  so no gradient reaches them.
 
 BatchNorm statistics and spectral norm's ``u`` thus update in the JAX
 package's order: G's in both steps, D's on the real and fake forwards of
 the D step and again in the G step.  Modules and optimizers update in
 place; the step returns the same ``TrainState`` with its key and counter
 advanced.
+
+``train.fused_prop`` (FusedProp, arXiv:2004.03335; n_critic 1, no
+penalty) shares one G forward between both updates: D on the real batch
+and its gradient, then D once on the fake batch as a leaf, and two pulls
+from that one graph: the D loss's cotangent gives D's parameter gradient,
+the G loss's gives the input gradient that G's backward takes.  Both use
+the pre-update D; BatchNorm statistics and ``u`` move in JAX's order (G
+once, D on the real then the fake forward); the EMA updates every step.
+
+``train.grad_accum`` splits the batch into that many microbatches, run one
+after another with the gradients summed, divided by the count and applied
+in one update; BatchNorm statistics and ``u`` thread through the
+microbatches in order, the penalty's key is ``split(k_gp, accum)``'s, and
+the metrics are the means over microbatches.
+
+``train.remat`` recomputes the train-mode G and D forwards in the backward
+(``torch.utils.checkpoint``, non-reentrant) from the buffers the first
+forward saw, leaving them as the first forward left them (``remat``).
+
+``train.steps_per_call`` K > 1 runs K steps a call (the port of the JAX
+package's ``lax.scan``): on a stacked host batch (leading axis K), one
+slice a step, or on the same device-resident dataset; the metrics are the
+last step's.
+
+Device-resident data (``data.device_resident``): the batch is
+``{"dataset_images", "dataset_labels"}``, the whole uint8 dataset on the
+device, and each step gathers its rows by index on the device: uniform
+with replacement from ``k_data`` (``sampling="replacement"``) or the
+epoch permutations of ``epoch_indices`` (``"epoch"``), drawn on the host
+as the JAX step draws them.
+
+The train-mode DBlock path ("on": the conv + BN-statistics kernel of
+``ops/cuda_conv_stats.py``; "auto": on for CUDA tensors) is each DBlock's
+own ``fuse_stats``, set from ``train.fuse_stats`` by ``build_models``.
 
 The step's forwards run on PyTorch's ops whatever ``ops.convs``' default
 impl is (``convs.using_impl("xla")``): the kernels behind "pallas" are
@@ -35,48 +65,56 @@ labels are ``batch["label"]``, the fake ones a ``randint`` draw per update.
 
 RNG: each step splits the state's threefry key into 8 as the JAX step does
 (``sample/threefry.py``), and draws the hflip bits, both latents, both
-fake label sets and the penalty's interpolation weights from the same keys,
-so from one carried state the two packages see the same noise.  Batch
-entries ``z_d`` / ``z_g``, ``y_fake_d`` / ``y_fake_g`` and ``gp_alpha``
-replace the draws (the JAX step's parity hooks).
+fake label sets, the penalty's interpolation weights and the resident
+batch's indices from the same keys, so from one carried state the two
+packages see the same noise and data.  Batch entries ``z_d`` / ``z_g``,
+``y_fake_d`` / ``y_fake_g`` and ``gp_alpha`` replace the draws (the JAX
+step's parity hooks).  The LR under a schedule is set before each update
+from the optimizer's own count (``train/state.py``).
 """
 
 from __future__ import annotations
 
 from typing import Callable, Dict, Tuple
 
+import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from tpugan_torch.configs import Config
-from tpugan_torch.losses.adversarial import d_loss_fn, g_loss_fn
+from tpugan_torch.losses.adversarial import (d_loss_fake_fn, d_loss_fn,
+                                             d_loss_real_fn, g_loss_fn)
 from tpugan_torch.losses.gradient_penalty import gradient_penalty
 from tpugan_torch.ops import convs
 from tpugan_torch.sample import threefry
-from tpugan_torch.train.state import TrainState
-
-
-def _not_ported(option: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{option} is not ported yet (ROADMAP.md, Queue A: {item!r})")
+from tpugan_torch.train.state import (TrainState, ema_update, make_schedules,
+                                      set_lr)
 
 
 def check_supported(cfg: Config) -> None:
     """Raise on an option of the JAX train step that the port does not
-    take."""
+    take, and on a combination the JAX step refuses."""
     t, kind = cfg.train, cfg.loss.kind
     if t.augment or t.ada_target != 0:
-        raise _not_ported("train.augment / train.ada_target", "Augment")
-    if t.fused_prop:
-        raise _not_ported("train.fused_prop", "Train step")
-    if t.grad_accum != 1:
-        raise _not_ported("train.grad_accum > 1", "Train step")
-    if t.steps_per_call > 1:
-        raise _not_ported("train.steps_per_call > 1", "Train step")
-    if t.remat:
-        raise _not_ported("train.remat", "Train step")
-    if cfg.data.device_resident:
-        raise _not_ported("data.device_resident", "Data")
+        raise NotImplementedError(
+            "train.augment / train.ada_target is not ported yet (ROADMAP.md, "
+            "Queue A: 'Augment')")
+    if t.fused_prop and (kind == "wgan_gp" or cfg.loss.n_critic != 1):
+        raise ValueError(
+            "train.fused_prop requires n_critic == 1 and no gradient "
+            "penalty (loss.kind != 'wgan_gp')")
+    if t.grad_accum < 1:
+        raise ValueError(f"train.grad_accum must be >= 1, got {t.grad_accum}")
+    if t.grad_accum > 1:
+        if t.fused_prop:
+            raise ValueError("train.grad_accum requires fused_prop off (the "
+                             "fused path shares one full-batch "
+                             "linearization)")
+        if cfg.data.batch_size % t.grad_accum:
+            raise ValueError(
+                f"data.batch_size {cfg.data.batch_size} not divisible by "
+                f"train.grad_accum {t.grad_accum}")
     if kind in ("wgan", "wgan_gp", "hinge") and (
             cfg.loss.real_label != 1.0 or cfg.loss.fake_label != 0.0):
         raise ValueError(
@@ -85,50 +123,155 @@ def check_supported(cfg: Config) -> None:
             f"bce/lsgan only")
 
 
+def data_root(seed: int) -> np.ndarray:
+    """The key of the per-epoch permutations: a function of the config seed
+    alone, so the data order is resume-exact."""
+    return threefry.fold_in(threefry.prng_key(seed), 0xDA7A)
+
+
+def epoch_indices(root, step: int, bsz: int, n: int) -> np.ndarray:
+    """DataLoader order (shuffle=True, without replacement) on a resident
+    dataset: run position p reads ``perm_{p // n}[p % n]``, the
+    permutation of ``fold_in(root, epoch)``.  A batch straddles at most two
+    epochs, so ``bsz <= n``."""
+    if bsz > n:
+        raise ValueError(
+            f"sampling='epoch' needs batch_size ({bsz}) <= dataset size "
+            f"({n}); a batch may straddle at most two epochs")
+    pos = step * bsz + np.arange(bsz)
+    epoch, r = pos // n, pos % n
+    perm_a = threefry.permutation(threefry.fold_in(root, epoch[0]), n)
+    perm_b = threefry.permutation(threefry.fold_in(root, epoch[-1]), n)
+    return np.where(epoch == epoch[0], perm_a[r], perm_b[r])
+
+
+def remat(module: nn.Module, *args):
+    """``module(*args)``, its activations recomputed in the backward
+    (``torch.utils.checkpoint``, non-reentrant) instead of kept.
+
+    JAX recomputes functionally; a module's forward updates its buffers in
+    place (BatchNorm's running statistics, spectral norm's ``u``), so a
+    plain recomputation would update them twice and, under spectral norm,
+    take sigma from a ``u`` the first forward already moved.  The
+    recomputation therefore runs from the buffers the first forward saw
+    and puts back the ones it found."""
+    if not torch.is_grad_enabled():
+        return module(*args)
+    bufs = list(module.buffers())
+    seen = [b.clone() for b in bufs]
+    first = [True]
+
+    def run(*a):
+        if first[0]:
+            first[0] = False
+            return module(*a)
+        with torch.no_grad():
+            found = [b.clone() for b in bufs]
+            for b, v in zip(bufs, seen):
+                b.copy_(v)
+        try:
+            return module(*a)
+        finally:
+            with torch.no_grad():
+                for b, v in zip(bufs, found):
+                    b.copy_(v)
+
+    return checkpoint(run, *args, use_reentrant=False)
+
+
+def _set_grads(params, grads) -> None:
+    for p, gr in zip(params, grads):
+        p.grad = gr
+
+
 def build_train_step(cfg: Config, g: nn.Module, d: nn.Module
                      ) -> Callable[[TrainState, Dict], Tuple[TrainState,
                                                              Dict]]:
     """Return the train step for (cfg, g, d): ``step(state, batch) ->
-    (state, metrics)`` with ``batch["image"]`` (N, S, S, C) uint8 or float
-    on the modules' device (and ``batch["label"]`` (N,) int for a
-    conditional model); metrics are 0-dim tensors left on the device."""
+    (state, metrics)``, K = ``train.steps_per_call`` steps a call.  The
+    batch is ``{"image": (N, S, S, C) uint8 or float, "label": (N,) int}``
+    on the modules' device (a leading K axis when K > 1), or the resident
+    ``{"dataset_images", "dataset_labels"}``; metrics are 0-dim tensors
+    left on the device."""
     check_supported(cfg)
     kind, nz, n_critic = cfg.loss.kind, cfg.model.nz, cfg.loss.n_critic
     hflip = cfg.data.hflip
     clip = cfg.loss.clip_value if kind == "wgan" else None
     conditional = cfg.model.arch == "cdcgan"
     n_classes = cfg.model.n_classes
+    accum = cfg.train.grad_accum
+    ema_decay = cfg.train.ema
+    bsz_cfg = cfg.data.batch_size
+    root = data_root(cfg.train.seed)
+    sched_g, sched_d = make_schedules(cfg)
+    labels = dict(real_label=cfg.loss.real_label,
+                  fake_label=cfg.loss.fake_label)
+
+    def run(module, *args):
+        return remat(module, *args) if cfg.train.remat else module(*args)
 
     def gen(z, y):
-        return g(z, y) if conditional else g(z)
+        return run(g, z, y) if conditional else run(g, z)
 
     def disc(x, y):
-        return d(x, y) if conditional else d(x)
+        return run(d, x, y) if conditional else run(d, x)
+
+    def d_update(state):
+        set_lr(state.opt_d, sched_d)
+        state.opt_d.step()
+        if clip is not None:
+            # original WGAN critic weight clipping (Lipschitz constraint)
+            with torch.no_grad():
+                for p in d.parameters():
+                    p.clamp_(-clip, clip)
+
+    def g_update(state):
+        set_lr(state.opt_g, sched_g)
+        state.opt_g.step()
+        if state.g_ema is not None:
+            ema_update(state.g_ema, g, ema_decay)
 
     def step(state: TrainState, batch: Dict) -> Tuple[TrainState, Dict]:
         with convs.using_impl("xla"):
             return _step(state, batch)
+
+    def _real_batch(state, batch, k_data, k_flip):
+        if "dataset_images" in batch:
+            images = batch["dataset_images"]
+            n_data = images.shape[0]
+            if cfg.data.sampling == "epoch":
+                idx = epoch_indices(root, state.step, bsz_cfg, n_data)
+            else:  # uniform with replacement
+                idx = threefry.randint(k_data, 0, n_data, (bsz_cfg,))
+            idx = torch.as_tensor(idx.astype(np.int64), device=images.device)
+            x_real = images.index_select(0, idx)
+            lab = batch.get("dataset_labels")
+            y_real = None if lab is None else lab.index_select(0, idx)
+        else:
+            x_real, y_real = batch["image"], batch.get("label")
+        dev = x_real.device
+        if conditional:
+            if y_real is None:
+                raise ValueError("a conditional model's batch needs 'label'")
+            y_real = y_real.to(dev).long()
+        if x_real.dtype == torch.uint8:
+            x_real = x_real.float() / 127.5 - 1.0
+        if hflip:
+            bsz = x_real.shape[0]
+            flip = torch.from_numpy(
+                threefry.uniform(k_flip, (bsz, 1, 1, 1)) < 0.5).to(dev)
+            x_real = torch.where(flip, x_real.flip(2), x_real)
+        return x_real, (y_real if conditional else None)
 
     def _step(state: TrainState, batch: Dict) -> Tuple[TrainState, Dict]:
         # the trainer's sample grids put G in eval mode between steps
         g.train()
         d.train()
         (rng, k_zd, k_zg, k_gp, k_yd, k_yg, k_flip,
-         _k_data) = threefry.split(state.rng, 8)
-        x_real = batch["image"]
+         k_data) = threefry.split(state.rng, 8)
+        x_real, y_real = _real_batch(state, batch, k_data, k_flip)
         dev = x_real.device
         bsz = x_real.shape[0]
-        y_real = None
-        if conditional:
-            if batch.get("label") is None:
-                raise ValueError("a conditional model's batch needs 'label'")
-            y_real = batch["label"].to(dev).long()
-        if x_real.dtype == torch.uint8:
-            x_real = x_real.float() / 127.5 - 1.0
-        if hflip:
-            flip = torch.from_numpy(
-                threefry.uniform(k_flip, (bsz, 1, 1, 1)) < 0.5).to(dev)
-            x_real = torch.where(flip, x_real.flip(2), x_real)
 
         def latents(name, key):
             z = batch.get(name)
@@ -144,57 +287,129 @@ def build_train_step(cfg: Config, g: nn.Module, d: nn.Module
                 y = threefry.randint(key, 0, n_classes, (bsz,))
             return torch.as_tensor(y, device=dev).long()
 
-        # --- D update ---
         z_d = latents("z_d", k_zd)
         y_fake_d = fake_labels("y_fake_d", k_yd)
-        with torch.no_grad():
-            fake = gen(z_d, y_fake_d)
-        state.opt_d.zero_grad(set_to_none=True)
-        real_logits = disc(x_real, y_real)
-        fake_logits = disc(fake, y_fake_d)
-        loss_d = d_loss_fn(kind, real_logits, fake_logits,
-                           real_label=cfg.loss.real_label,
-                           fake_label=cfg.loss.fake_label)
-        gp = torch.zeros((), device=dev)
-        if kind == "wgan_gp":
-            d.eval()  # the frozen state: no statistic or u moves
-            try:
-                gp = gradient_penalty(lambda x: disc(x, y_real), x_real,
-                                      fake, k_gp, alpha=batch.get("gp_alpha"))
-            finally:
-                d.train()
-            loss_d = loss_d + cfg.loss.lambda_gp * gp
-        loss_d.backward()
-        state.opt_d.step()
-        if clip is not None:
-            # original WGAN critic weight clipping (Lipschitz constraint)
-            with torch.no_grad():
-                for p in d.parameters():
-                    p.clamp_(-clip, clip)
-        metrics = {
-            "loss_d": loss_d.detach(),
-            "d_real": real_logits.detach().float().mean(),
-            "d_fake": fake_logits.detach().float().mean(),
-            "gp": gp.detach(),
-        }
-
-        # --- G update (every n_critic-th call) ---
-        if n_critic == 1 or state.step % n_critic == n_critic - 1:
-            z_g = latents("z_g", k_zg)
-            y_fake_g = fake_labels("y_fake_g", k_yg)
-            state.opt_g.zero_grad(set_to_none=True)
-            d.requires_grad_(False)
-            try:
-                loss_g = g_loss_fn(kind, disc(gen(z_g, y_fake_g), y_fake_g))
-                loss_g.backward()
-            finally:
-                d.requires_grad_(True)
-            state.opt_g.step()
-            metrics["loss_g"] = loss_g.detach()
+        if cfg.train.fused_prop:
+            metrics = fused(state, x_real, y_real, z_d, y_fake_d)
         else:
-            metrics["loss_g"] = torch.zeros((), device=dev)
+            metrics = alternating(state, batch, x_real, y_real, z_d,
+                                  y_fake_d, k_gp, lambda: (
+                                      latents("z_g", k_zg),
+                                      fake_labels("y_fake_g", k_yg)))
         state.rng = rng
         state.step += 1
         return state, metrics
 
-    return step
+    def fused(state, x_real, y_real, z, y_fake):
+        d_params = list(d.parameters())
+        g_params = list(g.parameters())
+        fake = gen(z, y_fake)
+        real_logits = disc(x_real, y_real)
+        loss_r = d_loss_real_fn(kind, real_logits,
+                                real_label=cfg.loss.real_label)
+        grads_real = torch.autograd.grad(loss_r, d_params)
+        fake_in = fake.detach().requires_grad_()
+        fake_logits = disc(fake_in, y_fake)
+        # the two cotangents of the one linearization of D on the fake
+        leaf = fake_logits.detach().requires_grad_()
+        loss_f = d_loss_fake_fn(kind, leaf, fake_label=cfg.loss.fake_label)
+        c_d, = torch.autograd.grad(loss_f, leaf)
+        loss_g = g_loss_fn(kind, leaf)
+        c_g, = torch.autograd.grad(loss_g, leaf)
+        grads_fake = torch.autograd.grad(fake_logits, d_params,
+                                         grad_outputs=c_d, retain_graph=True)
+        fake_cot, = torch.autograd.grad(fake_logits, fake_in,
+                                        grad_outputs=c_g)
+        _set_grads(g_params, torch.autograd.grad(fake, g_params,
+                                                 grad_outputs=fake_cot))
+        _set_grads(d_params, [a + b for a, b in zip(grads_real, grads_fake)])
+        d_update(state)
+        g_update(state)
+        return {
+            "loss_d": (loss_r + loss_f).detach(),
+            "d_real": real_logits.detach().float().mean(),
+            "d_fake": fake_logits.detach().float().mean(),
+            "gp": torch.zeros((), device=x_real.device),
+            "loss_g": loss_g.detach(),
+        }
+
+    def chunks(t):
+        return [None] * accum if t is None else list(t.chunk(accum))
+
+    def mean(values):
+        return values[0] if accum == 1 else torch.stack(values).mean()
+
+    def alternating(state, batch, x_real, y_real, z_d, y_fake_d, k_gp,
+                    g_inputs):
+        dev = x_real.device
+        # --- D update: one microbatch after another, gradients summed ---
+        gp_alpha = batch.get("gp_alpha")
+        if gp_alpha is not None:
+            gp_alpha = torch.as_tensor(gp_alpha).reshape(-1)
+        k_gps = threefry.split(k_gp, accum) if accum > 1 else [k_gp]
+        state.opt_d.zero_grad(set_to_none=True)
+        ms = []
+        for xr, yr, z, yf, kg, ga in zip(
+                chunks(x_real), chunks(y_real), chunks(z_d),
+                chunks(y_fake_d), k_gps, chunks(gp_alpha)):
+            with torch.no_grad():
+                fake = gen(z, yf)
+            real_logits = disc(xr, yr)
+            fake_logits = disc(fake, yf)
+            loss_d = d_loss_fn(kind, real_logits, fake_logits, **labels)
+            gp = torch.zeros((), device=dev)
+            if kind == "wgan_gp":
+                d.eval()  # the frozen state: no statistic or u moves
+                try:
+                    gp = gradient_penalty(lambda x: d(x, yr) if conditional
+                                          else d(x), xr, fake, kg, alpha=ga)
+                finally:
+                    d.train()
+                loss_d = loss_d + cfg.loss.lambda_gp * gp
+            loss_d.backward()
+            ms.append({
+                "loss_d": loss_d.detach(),
+                "d_real": real_logits.detach().float().mean(),
+                "d_fake": fake_logits.detach().float().mean(),
+                "gp": gp.detach(),
+            })
+        if accum > 1:
+            for p in d.parameters():
+                p.grad.div_(accum)
+        d_update(state)
+        metrics = {k: mean([m[k] for m in ms]) for k in ms[0]}
+
+        # --- G update (every n_critic-th call) ---
+        if n_critic == 1 or state.step % n_critic == n_critic - 1:
+            z_g, y_fake_g = g_inputs()
+            state.opt_g.zero_grad(set_to_none=True)
+            d.requires_grad_(False)
+            losses = []
+            try:
+                for z, yf in zip(chunks(z_g), chunks(y_fake_g)):
+                    loss_g = g_loss_fn(kind, disc(gen(z, yf), yf))
+                    loss_g.backward()
+                    losses.append(loss_g.detach())
+            finally:
+                d.requires_grad_(True)
+            if accum > 1:
+                for p in g.parameters():
+                    p.grad.div_(accum)
+            g_update(state)
+            metrics["loss_g"] = mean(losses)
+        else:
+            metrics["loss_g"] = torch.zeros((), device=dev)
+        return metrics
+
+    k = cfg.train.steps_per_call
+    if k <= 1:
+        return step
+
+    def multi_step(state: TrainState, batch: Dict) -> Tuple[TrainState, Dict]:
+        resident = "dataset_images" in batch
+        for i in range(k):
+            state, metrics = step(state, batch if resident else {
+                key: v[i] for key, v in batch.items()})
+        return state, metrics
+
+    return multi_step

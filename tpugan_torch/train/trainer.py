@@ -1,13 +1,32 @@
 """The public trainer API (port of ``tpugan/train/trainer.py``), on one
 device.
 
-``Trainer(cfg).train()`` runs the alternating D/G loop of
-``train/steps.py`` over the host input pipeline, logs the losses and the
-``images_per_sec`` counter (data images per wall second, between log
-points) to ``out_dir/metrics.jsonl`` every ``log_every`` steps, and writes
-a fixed-noise sample grid every ``sample_every`` steps through the
-``Sampler`` (one launch of megakernel v2 under ``train.kernels="pallas"``).
-The host synchronizes only at those points.
+``Trainer(cfg).train()`` runs the train step of ``train/steps.py`` (K =
+``train.steps_per_call`` steps a call) over the host input pipeline, or
+over the dataset held on the device (``data.device_resident``: uploaded
+once, each step gathers its batch there), and:
+
+- logs the losses and the ``images_per_sec`` counter (data images per wall
+  second, between log points) to ``out_dir/metrics.jsonl`` every
+  ``log_every`` steps;
+- writes a fixed-noise sample grid every ``sample_every`` steps through the
+  ``Sampler`` (one launch of megakernel v2 under ``train.kernels="pallas"``),
+  from the EMA of G when ``train.ema > 0`` (with G's live BatchNorm
+  statistics);
+- saves a checkpoint (``ckpt/checkpoint.py``) every ``ckpt_every`` steps
+  and at the end; ``train.resume`` (a checkpoint directory or file)
+  restores one first, and a fresh run into a directory that holds later
+  steps warns;
+- under ``halt_on_nonfinite``, saves a checkpoint and raises
+  ``NonFiniteLossError`` when a logged metric is NaN or inf;
+- on SIGTERM or SIGINT finishes the call in flight, saves a checkpoint and
+  returns (a second signal force-quits); the handlers are installed on the
+  main thread only, and the old ones are always put back;
+- under ``profile_steps`` N, traces calls 2 to N + 1 with ``torch.profiler``
+  into ``out_dir/prof``.
+
+Every cadence advances in strides of K (a window fires once whatever K
+is).  The host synchronizes only at the log, grid and checkpoint points.
 
 ``train.fuse_stats`` selects the train-mode DBlock path: "on" runs the
 conv + BN-statistics kernel (``ops/cuda_conv_stats.py``) in every DBlock
@@ -17,40 +36,74 @@ A conditional model (``cdcgan``) trains on the dataset's labels, and its
 grids take the fixed labels ``Sampler.labels(64, seed)``; a dataset whose
 labels are all zero is refused.
 
-Not ported yet (ROADMAP.md, Queue A), and raising here: checkpoints
-(``ckpt_every`` must be 0; no final checkpoint is written), ``resume``,
-eval (``eval_every``, ``keep_best``), profiling, ``halt_on_nonfinite``,
-meshes (``mesh_shape``, ``spatial_shards``, ``fsdp_shards``), and the
-step options ``check_supported`` lists.  No signal handler is installed.
+Not ported yet (ROADMAP.md, Queue A), and raising here: eval
+(``eval_every``, ``keep_best``) and meshes (``mesh_shape``,
+``spatial_shards``, ``fsdp_shards``).
 """
 
 from __future__ import annotations
 
+import itertools
 import os
+import signal
+import threading
 import time
 from typing import Dict, Optional
 
 import numpy as np
 import torch
 
+from tpugan_torch.ckpt.checkpoint import CheckpointManager, load
 from tpugan_torch.configs import Config
 from tpugan_torch.data.datasets import load_dataset
 from tpugan_torch.data.pipeline import make_input_pipeline
 from tpugan_torch.models.registry import build_models
 from tpugan_torch.sample.sampler import Sampler
-from tpugan_torch.train.state import TrainState, create_train_state
-from tpugan_torch.train.steps import build_train_step, check_supported
+from tpugan_torch.train.state import (TrainState, create_train_state,
+                                      sync_ema_buffers)
+from tpugan_torch.train.steps import build_train_step
 from tpugan_torch.utils.device import resolve_device
 from tpugan_torch.utils.images import make_grid, save_png, to_uint8
 from tpugan_torch.utils.logging import MetricsLogger
 
 _NOT_PORTED = (
-    ("ckpt_every", "Checkpoints"), ("resume", "Checkpoints"),
     ("eval_every", "Eval"), ("keep_best", "Eval"),
-    ("profile_steps", "Trainer loop"), ("halt_on_nonfinite", "Checkpoints"),
     ("mesh_shape", "Parallel"), ("spatial_shards", "Parallel"),
     ("fsdp_shards", "Parallel"),
 )
+
+# Graceful preemption: on SIGTERM (SIGINT likewise) the trainer finishes
+# the call in flight, saves a checkpoint and returns; the run resumes
+# exactly through ``train.resume``.  A second signal restores the default
+# disposition and re-raises it (force-quit).
+_PREEMPTED = threading.Event()
+
+
+class NonFiniteLossError(RuntimeError):
+    """Raised (with a checkpoint already saved) when train.halt_on_nonfinite
+    is set and a logged metric goes NaN/inf: the GAN diverged."""
+
+
+def _on_preempt(signum, frame):
+    if _PREEMPTED.is_set():  # second signal: give up gracefulness
+        signal.signal(signum, signal.SIG_DFL)
+        signal.raise_signal(signum)
+    _PREEMPTED.set()
+
+
+def _arm_preemption():
+    """Install the graceful handlers; returns the previous handlers (to put
+    back when training ends), or None off the main thread."""
+    if threading.current_thread() is not threading.main_thread():
+        return None
+    _PREEMPTED.clear()
+    return {s: signal.signal(s, _on_preempt)
+            for s in (signal.SIGTERM, signal.SIGINT)}
+
+
+def _disarm_preemption(prev) -> None:
+    for s, h in (prev or {}).items():
+        signal.signal(s, h)
 
 
 class Trainer:
@@ -61,7 +114,26 @@ class Trainer:
                 raise NotImplementedError(
                     f"train.{field} is not ported yet (ROADMAP.md, Queue A: "
                     f"{item!r}); set it to its off value")
-        check_supported(cfg)
+        k = cfg.train.steps_per_call
+        if k > 1 and cfg.train.total_steps % k:
+            # K steps a call: a partial last call would overshoot
+            # total_steps by up to k - 1 updates
+            raise ValueError(
+                f"train.total_steps={cfg.train.total_steps} is not a "
+                f"multiple of train.steps_per_call={k}; each call advances "
+                f"k steps, so the run would overshoot: round total_steps or "
+                f"change steps_per_call")
+        if (cfg.data.sampling == "epoch"
+                and (cfg.train.total_steps + 1) * cfg.data.batch_size
+                >= 2 ** 31):
+            # the port's positions are int64, but the two packages refuse
+            # the same configs (the JAX step's are int32)
+            raise ValueError(
+                f"sampling='epoch' computes run positions as step*batch_size "
+                f"in int32 in the JAX package; total_steps="
+                f"{cfg.train.total_steps} x batch_size={cfg.data.batch_size} "
+                f"overflows 2^31: use sampling='replacement' for runs this "
+                f"long")
         self.cfg = cfg
         self.device = resolve_device(device)
         gen = torch.Generator().manual_seed(cfg.train.seed)
@@ -71,6 +143,7 @@ class Trainer:
         self.state: TrainState = create_train_state(cfg, self.g, self.d)
         self.step_fn = build_train_step(cfg, self.g, self.d)
         self._data = data  # injected dataset (tests); else loaded lazily
+        self._restored = False
 
     def _dataset(self) -> dict:
         if self._data is None:
@@ -82,18 +155,90 @@ class Trainer:
                 n_classes=c.model.n_classes)
         return self._data
 
+    def _gen_module(self) -> torch.nn.Module:
+        """The generator that samples: the EMA of G when it is kept (with
+        G's live buffers copied in), else G."""
+        if self.state.g_ema is None:
+            return self.state.g
+        sync_ema_buffers(self.state)
+        return self.state.g_ema
+
     def sampler(self) -> Sampler:
-        return Sampler(self.cfg, self.g)
+        return Sampler(self.cfg, self._gen_module())
+
+    # -- checkpoints --------------------------------------------------------
+    def save_checkpoint(self, ckpt: CheckpointManager) -> None:
+        ckpt.save(self.state.step, self.state.state_dict(),
+                  self.cfg.to_json())
+
+    def restore(self, path: str, step: Optional[int] = None) -> int:
+        """Restore the checkpoint file ``path``, or step ``step`` (default:
+        the latest) of the checkpoint directory ``path``, onto this
+        trainer's device; returns the restored step."""
+        if os.path.isfile(path):
+            sd = load(path, map_location=self.device)
+        else:
+            sd = CheckpointManager(path).restore(step,
+                                                 map_location=self.device)
+        self.state.load_state_dict(sd)
+        self._restored = True
+        return self.state.step
+
+    # -- training -----------------------------------------------------------
+    def _batches(self, data: dict):
+        """The step's input: the dataset uploaded to the device once (one
+        dict, every call), or the host pipeline from the state's step."""
+        cfg = self.cfg
+        conditional = cfg.model.arch == "cdcgan"
+        if cfg.data.device_resident:
+            if hasattr(data["images"], "gather"):
+                raise ValueError(
+                    "data.device_resident requires the decoded dataset in "
+                    "memory; this dataset is streaming: set "
+                    "data.streaming='off' or drop device_resident")
+            resident = {"dataset_images": torch.from_numpy(
+                np.ascontiguousarray(data["images"])).to(self.device)}
+            if conditional:
+                resident["dataset_labels"] = torch.from_numpy(
+                    np.asarray(data["labels"])).to(self.device)
+            return itertools.repeat(resident)
+        return make_input_pipeline(
+            data, cfg.data.batch_size, seed=cfg.train.seed,
+            with_labels=conditional, device=self.device,
+            start_step=self.state.step,
+            stack=max(cfg.train.steps_per_call, 1))
+
+    def _stop_profiler(self, prof, path: str) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        prof.stop()
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        prof.export_chrome_trace(path)
 
     def train(self, total_steps: Optional[int] = None) -> Dict[str, float]:
         """Train up to step ``total_steps`` (default ``train.total_steps``);
         returns the last logged metrics."""
         cfg = self.cfg
-        total_steps = total_steps or cfg.train.total_steps
-        out_dir = cfg.train.out_dir
-        conditional = cfg.model.arch == "cdcgan"
+        t = cfg.train
+        total_steps = total_steps or t.total_steps
+        out_dir = t.out_dir
+        os.makedirs(out_dir, exist_ok=True)
+        ckpt = CheckpointManager(t.ckpt_dir)
+        if t.resume:
+            start = self.restore(t.resume)
+            print(f"resumed from step {start}")
+        elif not self._restored:
+            prev = ckpt.latest_step()
+            if prev is not None and prev > self.state.step:
+                # the old run's higher steps would win latest_step() on a
+                # later resume
+                print(f"warning: {t.ckpt_dir} already holds step {prev} from "
+                      f"a previous run; this fresh run starts at "
+                      f"{self.state.step}: pass train.resume to continue the "
+                      f"old run, or use a fresh ckpt_dir to avoid mixed "
+                      f"checkpoints")
         data = self._dataset()
-        if conditional and cfg.model.n_classes > 1:
+        if cfg.model.arch == "cdcgan" and cfg.model.n_classes > 1:
             # A conditional model on all-zero labels (the JAX loaders'
             # fallback when a label file is absent) would see every real
             # image as class 0 while its fake labels are uniform.
@@ -105,43 +250,87 @@ class Trainer:
                     f"{cfg.model.n_classes}) but the dataset's labels are "
                     f"all zero: is the label file missing?")
         logger = MetricsLogger(out_dir)
-        start_step = self.state.step
-        pipeline = make_input_pipeline(
-            data, cfg.data.batch_size, seed=cfg.train.seed,
-            with_labels=conditional, device=self.device,
-            start_step=start_step)
-        sampler = self.sampler()
-        fixed_z = sampler.noise(64, cfg.train.seed)
-        fixed_y = sampler.labels(64, cfg.train.seed)
+        k = max(t.steps_per_call, 1)
+        bsz = cfg.data.batch_size
+        it = iter(self._batches(data))
+        sampler = Sampler(cfg, self.g)
+        fixed_z = sampler.noise(64, t.seed)
+        fixed_y = sampler.labels(64, t.seed)
 
         last_metrics: Dict[str, float] = {}
         t0 = time.perf_counter()
         imgs_since = 0
-        it = iter(pipeline)
+        prof, prof_path = None, ""
+        start_step = self.state.step
+        prev_handlers = _arm_preemption()
+        preempted = False
         try:
-            for i in range(start_step, total_steps):
+            for i in range(start_step, total_steps, k):
+                if prev_handlers is not None and _PREEMPTED.is_set():
+                    preempted = True
+                    break
+                # the profiler's window: calls 2 .. 1 + profile_steps
+                if t.profile_steps:
+                    if i == start_step + k and prof is None:
+                        acts = [torch.profiler.ProfilerActivity.CPU]
+                        if self.device.type == "cuda":
+                            acts.append(torch.profiler.ProfilerActivity.CUDA)
+                        prof = torch.profiler.profile(activities=acts)
+                        prof.start()
+                        prof_path = os.path.join(
+                            out_dir, "prof", f"steps_{i + 1:07d}.json.gz")
+                    elif prof is not None and i >= start_step + k * (
+                            1 + t.profile_steps):
+                        self._stop_profiler(prof, prof_path)
+                        prof = None
                 self.state, metrics = self.step_fn(self.state, next(it))
-                imgs_since += cfg.data.batch_size
-                step_no = i + 1
+                imgs_since += bsz * k
+                step_no = i + k
                 last = step_no >= total_steps
-                if cfg.train.log_every and (
-                        step_no % cfg.train.log_every == 0 or last):
-                    host = {k: float(v) for k, v in metrics.items()}
+                if t.log_every and (step_no % t.log_every < k or last):
+                    host = {key: float(v) for key, v in metrics.items()}
                     host["images_per_sec"] = imgs_since / max(
                         time.perf_counter() - t0, 1e-9)
                     logger.log(step_no, host)
                     last_metrics = host
+                    bad = [key for key, v in host.items()
+                           if not np.isfinite(v)]
+                    if t.halt_on_nonfinite and bad:
+                        self.save_checkpoint(ckpt)
+                        if prof is not None:
+                            self._stop_profiler(prof, prof_path)
+                            prof = None
+                        raise NonFiniteLossError(
+                            f"non-finite metrics {bad} at step {step_no}; "
+                            f"checkpoint saved to {t.ckpt_dir}")
                     t0 = time.perf_counter()
                     imgs_since = 0
-                if cfg.train.sample_every and (
-                        step_no % cfg.train.sample_every == 0 or last):
-                    imgs = sampler.sample_fixed(fixed_z, fixed_y)
+                if t.sample_every and (step_no % t.sample_every < k or last):
+                    imgs = Sampler(cfg, self._gen_module()).sample_fixed(
+                        fixed_z, fixed_y)
                     save_png(os.path.join(out_dir,
                                           f"samples_{step_no:07d}.png"),
                              make_grid(to_uint8(imgs), nrow=8))
                     t0 = time.perf_counter()  # grid D2H + PNG out of img/s
                     imgs_since = 0
+                if t.ckpt_every and step_no % t.ckpt_every < k:
+                    self.save_checkpoint(ckpt)
+            if prof is not None:
+                self._stop_profiler(prof, prof_path)
+                prof = None
+            self.save_checkpoint(ckpt)
+            if preempted:
+                print(f"preempted at step {self.state.step}: checkpoint "
+                      f"saved to {t.ckpt_dir}; rerun with train.resume="
+                      f"{t.ckpt_dir!r} to continue")
+            return last_metrics
         finally:
-            it.close()
+            # always put the process's signal handlers back: a swallowed
+            # SIGTERM after training would leave the process unkillable
+            # gracefully
+            _disarm_preemption(prev_handlers)
+            if prof is not None:
+                prof.stop()
+            getattr(it, "close", lambda: None)()
+            ckpt.close()
             logger.close()
-        return last_metrics
