@@ -82,16 +82,42 @@ Phases, each of which fails the run (no exception is caught):
    into a CPU ``Trainer`` bit for bit;
 12. ``grad_accum=2`` (18 conv + BN-stats launches a step) and ``remat`` (9
    + 9 recomputed; step 1 against the plain step within phase 5's bound;
-   each one's peak device memory) on full-width ``dcgan_celeba64``.
+   each one's peak device memory) on full-width ``dcgan_celeba64``;
+13. data: MNIST idx (gz), CIFAR-10 pickle batches and a CelebA-layout
+   folder of 2,048 PNGs at 178 x 218 with ``list_attr_celeba.txt`` (its
+   Male column the labels), written from the synthetic set under
+   ``runs/smoke/data`` and read back through the port's readers: MNIST and
+   CIFAR-10 bit for bit, MNIST also at 64 px x 3 channels, the folder's
+   crop and resize against PIL's, in RAM and streaming bit for bit
+   (``decoded_count`` counts the images drawn), the C++ gather with flips
+   against numpy at batch 128; host ms per batch of the streaming decode
+   and of both gathers;
+14. the small-data path: ``Trainer`` on full-width ``cdcgan_celeba64``
+   from that folder (batch 128, hflip, kernels "pallas", fuse_stats on,
+   ``augment="color,translation,cutout"``, ADA at target 0.6 with
+   ``ada_kimg=10``, proxy FID of 2,048 samples every 10 steps with
+   ``keep_best``), 20 steps streaming and 20 in RAM: 9 kernel-5 launches
+   a step, 8 v2 launches a FID tick and one a grid, finite losses and
+   FIDs, ``ada_p`` following its rule and moving off 0, ``best/`` and its
+   watermark; the in-RAM run resumed from step 10 (cuDNN deterministic)
+   ends bit for bit where it did (key, step, ADA's p and r_t, parameters,
+   moments, watermark); ms per step with augment + ADA against the same
+   step without, in turns, and a profiled window; ``evaluate()``'s time
+   by part (v2 sampling, features, host FID / KID / IS);
+14b. the proxy extractor and InceptionV3 (``init_random`` weights, 64
+   images at 64 px resized to 299) on the card against the CPU, and
+   ``apply_policy`` on the card against the CPU (fp32 and bf16), with ms
+   per batch.
 
-Phases 3-4, 5, 6, 7 (train, eval D), 8, 9 (train, eval D), 10, 11 and 12
-(``grad_accum``, remat's plain twin, remat) are the paths: each zeroes the
-launch counters just before it and reads them just after, and every kernel
-it names must have launched.  Each kernel's ``launches`` in the
-``kernels`` line sums its paths' counts, and ``launches_by_path`` lists
-them.  Checkpoints and the flagship's trace go to the git-ignored
-``runs/smoke``.  The last lines are the ``kernels`` JSON, the card's name
-and power limit, and ``{"ok": true, "device": {...}}``.
+Phases 3-4, 5, 6, 7 (train, eval D), 8, 9 (train, eval D), 10, 11, 12
+(``grad_accum``, remat's plain twin, remat) and 14 (streaming, in RAM,
+resumed, timed, ``evaluate``) are the paths: each zeroes the launch
+counters just before it and reads them just after, and every kernel it
+names must have launched.  Each kernel's ``launches`` in the ``kernels``
+line sums its paths' counts, and ``launches_by_path`` lists them.
+Checkpoints, the dataset files and the flagship's trace go to the
+git-ignored ``runs/smoke``.  The last lines are the ``kernels`` JSON, the
+card's name and power limit, and ``{"ok": true, "device": {...}}``.
 Exits non-zero without a CUDA device or without the ``tpugan_torch``
 package beside this file.
 
@@ -124,6 +150,7 @@ PEAK_BYTES = 3.35e12
 
 BATCH = 256
 TRAIN_BATCH = 128
+N_FILES = 2048  # images in each dataset file set of phases 13-14
 # checkpoints and the flagship's trace: written at run time, git-ignored,
 # and kept out of chiprun_out/ (the small outputs' directory) for size
 RUNS = ROOT / "runs" / "smoke"
@@ -254,6 +281,21 @@ def rate(case: dict) -> str:
             r = f"{case['flops'] / t / 1e9:.1f} TFLOP/s"
         out.append(f"{key} {r}, {100 * case['bound_ms'] / t:.1f}% of bound")
     return "; ".join(out)
+
+
+def time_host(fn, iters: int) -> float:
+    """ms per call of ``fn`` on the host's clock, synchronizing the card
+    after each call (a call may leave device work queued), after one
+    warm-up call."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+        torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / iters
 
 
 def events_ms(fn) -> float:
@@ -530,11 +572,16 @@ def max_state_diff(a, b) -> float:
 
 def states_equal(a, b) -> bool:
     """Two TrainStates hold the same bits: every parameter and buffer, the
-    EMA, both optimizers' moments, counts and LRs, the key and the step."""
+    EMA, both optimizers' moments, counts and LRs, ADA's p and r_t, the key
+    and the step."""
     import torch
 
     sa, sb = a.state_dict(), b.state_dict()
-    return ((sa["step"], sa["rng"]) == (sb["step"], sb["rng"])
+    ada = all((sa[k] is None and sb[k] is None)
+              or (sa[k] is not None and sb[k] is not None
+                  and torch.equal(sa[k].cpu(), sb[k].cpu()))
+              for k in ("ada_p", "ada_rt"))
+    return ((sa["step"], sa["rng"]) == (sb["step"], sb["rng"]) and ada
             and all(sa[p]["param_groups"] == sb[p]["param_groups"]
                     for p in ("opt_g", "opt_d"))
             and all(torch.equal(ta, tb) for _, ta, tb in state_tensors(a, b)))
@@ -928,7 +975,7 @@ def main() -> int:
     require(tcfg.model.ndf == 64 and tcfg.data.batch_size == TRAIN_BATCH
             and tcfg.train.precision == "bf16" and tcfg.data.hflip,
             "not the full-width dcgan_celeba64 train configuration")
-    train_data = load_dataset("synthetic", image_size=64, channels=3,
+    train_data = load_dataset("synthetic", "", image_size=64, channels=3,
                               synthetic_size=tcfg.data.synthetic_size,
                               seed=tcfg.train.seed)
     real = torch.from_numpy(train_data["images"][:TRAIN_BATCH]).to(dev)
@@ -979,7 +1026,7 @@ def main() -> int:
     # spectrally normalized 32 px D's three layers on W / sigma (sigma from
     # a u that two train-mode forwards moved), batch 128, on synthetic
     # images and seeded D's own activations
-    data32 = load_dataset("synthetic", image_size=32, channels=3,
+    data32 = load_dataset("synthetic", "", image_size=32, channels=3,
                           synthetic_size=10 * TRAIN_BATCH,
                           seed=tcfg.train.seed)
     real32 = torch.from_numpy(data32["images"][:TRAIN_BATCH]).to(dev)
@@ -1432,7 +1479,7 @@ def main() -> int:
 
     # -- 9. conditional: cdcgan_celeba64 at full width, fuse_stats on / off -
     zero_counts()
-    cdata = load_dataset("synthetic", image_size=64, channels=3,
+    cdata = load_dataset("synthetic", "", image_size=64, channels=3,
                          synthetic_size=10 * TRAIN_BATCH,
                          seed=tcfg.train.seed, n_classes=2)
     ccfgs = {m: slice_cfg("cdcgan_celeba64", f"cdcgan_{m}", fuse_stats=m,
@@ -1511,7 +1558,7 @@ def main() -> int:
             and fcfg.data.sampling == "replacement"
             and fcfg.train.precision == "bf16" and fcfg.data.hflip,
             "not the full-width dcgan_celeba64_fast configuration")
-    fdata = load_dataset("synthetic", image_size=64, channels=3,
+    fdata = load_dataset("synthetic", "", image_size=64, channels=3,
                          synthetic_size=fcfg.data.synthetic_size,
                          seed=fcfg.train.seed)
     log(f"[fast] resident dataset {fdata['images'].shape} "
@@ -1755,7 +1802,334 @@ def main() -> int:
         f"card {card()}")
     del rtr
 
-    # -- 13. report ---------------------------------------------------------
+    # -- 13. data: the dataset files on the card's machine ------------------
+    # MNIST idx, CIFAR-10 pickles and a CelebA-layout folder of PNGs at the
+    # aligned 178 x 218 geometry, written from the synthetic set under
+    # runs/smoke/data, then read back through the port's readers
+    from concurrent.futures import ThreadPoolExecutor
+    import gzip
+    import pickle
+    import struct
+
+    from PIL import Image
+
+    from tpugan_torch.data import native
+    from tpugan_torch.utils.images import encode_png
+
+    ddir = RUNS / "data"
+    ddir.mkdir(parents=True, exist_ok=True)
+    t0 = time.time()
+    mn = load_dataset("synthetic", "", image_size=28, channels=1,
+                      synthetic_size=N_FILES, seed=3, n_classes=10)
+    for fname, arr, magic in (
+            ("train-images-idx3-ubyte.gz", mn["images"][..., 0], 0x803),
+            ("train-labels-idx1-ubyte.gz",
+             mn["labels"].astype(np.uint8), 0x801)):
+        with gzip.open(ddir / fname, "wb") as f:
+            f.write(struct.pack(">I", magic))
+            f.write(struct.pack(f">{arr.ndim}I", *arr.shape))
+            f.write(arr.tobytes())
+    cf = load_dataset("synthetic", "", image_size=32, channels=3,
+                      synthetic_size=5 * 1024, seed=4, n_classes=10)
+    cdir = ddir / "cifar-10-batches-py"
+    cdir.mkdir(exist_ok=True)
+    for i in range(5):
+        part = slice(1024 * i, 1024 * (i + 1))
+        with open(cdir / f"data_batch_{i + 1}", "wb") as f:
+            pickle.dump({b"data": cf["images"][part].transpose(
+                0, 3, 1, 2).reshape(1024, -1), b"labels": [
+                    int(v) for v in cf["labels"][part]]}, f)
+    # CelebA: synthetic images made at 218 px, cropped to 178 wide, and
+    # their two classes as the attribute file's Male column
+    ce = load_dataset("synthetic", "", image_size=218, channels=3,
+                      synthetic_size=N_FILES, seed=5, n_classes=2)
+    celeb = np.ascontiguousarray(ce["images"][:, :, 20:198])
+    fdir = ddir / "img_align_celeba"
+    fdir.mkdir(exist_ok=True)
+    names = [f"{i:06d}.png" for i in range(N_FILES)]
+
+    def write_png(i):
+        (fdir / names[i]).write_bytes(encode_png(celeb[i]))
+
+    with ThreadPoolExecutor(8) as pool:
+        list(pool.map(write_png, range(N_FILES)))
+    with open(ddir / "list_attr_celeba.txt", "w") as f:
+        f.write(f"{N_FILES}\nSmiling Male Young\n")
+        for name, y in zip(names, ce["labels"]):
+            f.write(f"{name} -1 {1 if y else -1} 1\n")
+    log(f"[data] wrote MNIST {mn['images'].shape}, CIFAR-10 "
+        f"{cf['images'].shape}, {N_FILES} PNGs {celeb.shape[1:]} in "
+        f"{time.time() - t0:.1f}s")
+    got = load_dataset("mnist", str(ddir), image_size=28, channels=1)
+    require(np.array_equal(got["images"], mn["images"])
+            and np.array_equal(got["labels"], mn["labels"]),
+            "MNIST read back differs")
+    got = load_dataset("mnist", str(ddir), image_size=64, channels=3)
+    m64 = got["images"]
+    require(m64.shape == (N_FILES, 64, 64, 3)
+            and np.array_equal(m64[..., 0], m64[..., 2])
+            and abs(float(m64.mean()) - float(mn["images"].mean())) < 1.0,
+            f"MNIST at 64 px x 3: {m64.shape}, mean {m64.mean()}")
+    got = load_dataset("cifar10", str(ddir), image_size=32, channels=3)
+    require(np.array_equal(got["images"], cf["images"])
+            and np.array_equal(got["labels"], cf["labels"]),
+            "CIFAR-10 read back differs")
+    t0 = time.time()
+    ram = load_dataset("celeba", str(ddir), image_size=64, channels=3,
+                       streaming="off")
+    ram_s = time.time() - t0
+    require(np.array_equal(ram["labels"], ce["labels"]), "CelebA labels")
+    # the reader's crop and resize are PIL's: the middle 178 rows, bilinear
+    for i in (0, N_FILES // 2, N_FILES - 1):
+        ref = np.asarray(Image.fromarray(celeb[i, 20:198]).resize(
+            (64, 64), Image.BILINEAR))
+        require(np.array_equal(ram["images"][i], ref), f"CelebA image {i}")
+    stream = load_dataset("celeba", str(ddir), image_size=64, channels=3,
+                          streaming="on")["images"]
+    require(stream.decoded_count == 0, "the streaming folder decoded early")
+    order = np.random.default_rng(6).permutation(N_FILES)
+    for lo in range(0, N_FILES, TRAIN_BATCH):
+        require(np.array_equal(stream.gather(order[lo:lo + TRAIN_BATCH]),
+                               ram["images"][order[lo:lo + TRAIN_BATCH]]),
+                f"streaming batch at {lo} differs from in RAM")
+    require(stream.decoded_count == N_FILES, "decoded_count")
+    idx = order[:TRAIN_BATCH]
+    flip = (np.arange(TRAIN_BATCH) % 3 == 0).astype(np.uint8)
+    require(np.array_equal(native.batch_gather(ram["images"], idx, flip),
+                           native.batch_gather_plain(ram["images"], idx,
+                                                     flip)),
+            "the C++ gather differs from numpy")
+    host_ms = {
+        "streaming decode": time_host(lambda: stream.gather(idx), 5),
+        "C++ gather": time_host(
+            lambda: native.batch_gather(ram["images"], idx), 50),
+        "numpy gather": time_host(
+            lambda: native.batch_gather_plain(ram["images"], idx), 50)}
+    stream.close()
+    log(f"[data] read back bit for bit (MNIST, CIFAR-10, the folder in RAM "
+        f"and streaming); in-RAM decode of {N_FILES} PNGs {ram_s:.2f}s; host "
+        f"ms per batch of {TRAIN_BATCH}: " + ", ".join(
+            f"{k} {v:.4f}" for k, v in host_ms.items())
+        + f" ({TRAIN_BATCH * 1e3 / host_ms['streaming decode']:.0f} "
+        f"images/s decoded); card {card()}")
+    del mn, cf, ce, celeb
+
+    # -- 14. the small-data path: cdcgan_celeba64 from the PNG folder ------
+    # full width, batch 128, hflip; DiffAugment + ADA (p moves 0.0128 a
+    # step), FID (proxy, 2048 samples in 8 v2 launches) every 10 steps with
+    # keep_best; streaming and in RAM, a resume from step 10 bit for bit
+    from tpugan_torch.eval.evaluate import evaluate
+    from tpugan_torch.eval.features import make_extractor
+    from tpugan_torch.eval.fid import (fid_from_features, inception_score,
+                                       kid_from_features)
+
+    def small_cfg(run: str, **over):
+        return get_preset("cdcgan_celeba64").override({
+            "data.dataset": "celeba", "data.data_dir": str(ddir),
+            "train.kernels": "pallas", "train.fuse_stats": "on",
+            "train.augment": "color,translation,cutout",
+            "train.ada_target": 0.6, "train.ada_kimg": 10,
+            "train.eval_every": 10, "train.keep_best": True,
+            "eval.fid_n": N_FILES, "eval.fid_batch": 256,
+            "eval.metric": "proxy", "train.total_steps": 20,
+            "train.log_every": 1, "train.sample_every": 10,
+            "train.ckpt_every": 10,
+            "train.out_dir": str(ROOT / "chiprun_out" / f"smoke_{run}"),
+            "train.ckpt_dir": str(RUNS / run), **over})
+
+    def check_small(tr, cfg, label):
+        """The small-data run's logged record: finite losses and FIDs, ADA
+        following its rule, best/ and the watermark."""
+        rows = logged(cfg)
+        train_rows = [r for r in rows if "loss_d" in r]
+        fids = [r for r in rows if "fid" in r]
+        require([r["step"] for r in train_rows] == list(range(1, 21)),
+                f"{label}: logged steps {[r['step'] for r in train_rows]}")
+        require(all(np.isfinite(r[k]) for r in train_rows
+                    for k in ("loss_d", "loss_g", "ada_p", "ada_rt")),
+                f"{label}: non-finite metrics")
+        p_prev = 0.0
+        for r in train_rows:  # p moves by sign(rt - target) * 0.0128
+            want = min(max(p_prev + np.sign(r["ada_rt"] - 0.6) * 0.0128,
+                           0.0), 1.0)
+            require(abs(r["ada_p"] - want) <= 1e-6,
+                    f"{label}: ada_p {r['ada_p']} at step {r['step']}, "
+                    f"want {want}")
+            p_prev = r["ada_p"]
+        ps = [r["ada_p"] for r in train_rows]
+        require(max(ps) > 0 and all(0 <= p <= 1 for p in ps),
+                f"{label}: ada_p never moved off 0: {ps}")
+        require([r["step"] for r in fids] == [10, 20]
+                and all(np.isfinite(r["fid"]) for r in fids),
+                f"{label}: FIDs {fids}")
+        meta = tr._load_best_meta()
+        best = Path(cfg.train.ckpt_dir) / "best"
+        require(meta is not None and (best / f"{meta['step']}.pt").exists(),
+                f"{label}: best/ {sorted(os.listdir(best))}, watermark "
+                f"{meta}")
+        log(f"[small] {label}: ada_p {ps[0]:.4f} -> {ps[-1]:.4f} (max "
+            f"{max(ps):.4f}), r_t {train_rows[-1]['ada_rt']:.4f}; FID "
+            f"{[round(r['fid'], 4) for r in fids]}; best {meta}")
+        return train_rows
+
+    zero_counts()
+    scfg = small_cfg("small_stream", **{"data.streaming": "on"})
+    require(scfg.model.nz == 100 and scfg.model.ngf == 64
+            and scfg.model.ndf == 64 and scfg.model.embed_dim == 50
+            and scfg.data.batch_size == TRAIN_BATCH and scfg.data.hflip
+            and scfg.model.d_batchnorm and scfg.loss.kind == "bce",
+            "not the full-width cdcgan_celeba64 configuration")
+    t0 = time.time()
+    st_tr = Trainer(scfg, device=dev)
+    st_tr.train()
+    st_s = time.time() - t0
+    counts = read_counts("train cdcgan_celeba64 from files, streaming, "
+                         "augment + ADA + FID")
+    require(counts["conv_stats"] == 9 * 20,
+            f"{counts['conv_stats']} conv_stats launches in 20 steps")
+    require(counts["v2"] == 2 * (N_FILES // 256) + 2,
+            f"{counts['v2']} v2 launches: not 8 a FID tick and a grid each "
+            f"of 2 ticks")
+    check_small(st_tr, scfg, "streaming")
+    images = st_tr._dataset()["images"]
+    log(f"[small] streaming: {images.decoded_count} PNGs decoded in 20 "
+        f"steps and 2 FID ticks ({st_s:.1f}s with set-up)")
+    images.close()
+    del st_tr
+
+    # in RAM, cuDNN deterministic: 10 steps, the run's checkpoint directory
+    # copied, 10 more; then the copy resumed to 20
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    zero_counts()
+    rcfg = small_cfg("small_ram", **{"data.streaming": "off"})
+    ram_tr = Trainer(rcfg, device=dev)
+    ram_tr.train(10)
+    snap = RUNS / "small_resumed"
+    shutil.copytree(rcfg.train.ckpt_dir, snap)
+    ram_tr.train(20)
+    counts = read_counts("train cdcgan_celeba64 from files, in RAM, "
+                         "augment + ADA + FID")
+    require(counts["conv_stats"] == 9 * 20 and counts["v2"] == 18,
+            f"in-RAM run launches {counts}")
+    check_small(ram_tr, rcfg, "in RAM")
+    zero_counts()
+    res_cfg = rcfg.override({"train.ckpt_dir": str(snap),
+                             "train.resume": str(snap),
+                             "train.out_dir": str(ROOT / "chiprun_out"
+                                                  / "smoke_small_resumed")})
+    res_tr = Trainer(res_cfg, device=dev)
+    res_tr.train(20)
+    counts = read_counts("train cdcgan_celeba64 resumed from step 10")
+    require(counts["conv_stats"] == 9 * 10 and counts["v2"] == 9,
+            f"resumed run launches {counts}")
+    require(states_equal(ram_tr.state, res_tr.state),
+            f"the run resumed from step 10 differs from the uninterrupted "
+            f"one by {max_state_diff(ram_tr.state, res_tr.state)}")
+    wm = (ram_tr._load_best_meta(), res_tr._load_best_meta())
+    require(wm[0] == wm[1], f"watermarks differ: {wm}")
+    log(f"[small] resumed from step 10 to 20: key, step, ada_p "
+        f"{res_tr.state.ada_p.item():.4f}, ada_rt "
+        f"{res_tr.state.ada_rt.item():.6f}, parameters, moments and the "
+        f"watermark {wm[1]} bit for bit")
+    torch.backends.cudnn.deterministic = False
+    del res_tr
+
+    # ms per step with augment + ADA against the same run without, in turns
+    zero_counts()
+    ram_data = ram_tr._dataset()
+    plain_tr = Trainer(rcfg.override({
+        "train.augment": "", "train.ada_target": 0.0, "train.eval_every": 0,
+        "train.keep_best": False}), data=ram_data, device=dev)
+    aug_ms = {"plain": [], "augment + ADA": []}
+    small_metrics = []
+    for mode in ("plain", "augment + ADA", "augment + ADA", "plain"):
+        tr = plain_tr if mode == "plain" else ram_tr
+        aug_ms[mode].append(run_steps(tr, 10, ram_data, small_metrics))
+    finite(small_metrics, "cdcgan_celeba64 augment + ADA timing")
+    profile_steps(ram_tr, 5, ram_data, small_metrics,
+                  "cdcgan_celeba64 augment + ADA", top=10)
+    read_counts("train cdcgan_celeba64 augment + ADA timed")
+    mean_ms = {k: sum(v) / len(v) for k, v in aug_ms.items()}
+    log(f"[small] ms/step: augment + ADA {mean_ms['augment + ADA']:.4f}, "
+        f"plain {mean_ms['plain']:.4f} (+"
+        f"{mean_ms['augment + ADA'] - mean_ms['plain']:.4f} ms; runs "
+        f"{aug_ms}); card {card()}")
+    del plain_tr
+
+    # evaluate() by part: v2 sampling, features, host FID / KID / IS
+    zero_counts()
+    g_eval = ram_tr._gen_module()
+    ext = make_extractor(3, "proxy", device=dev)
+    ecfg = rcfg
+    parts = {}
+    t0 = time.perf_counter()
+    fake = Sampler(ecfg, g_eval).sample(N_FILES, seed=0, batch_size=256)
+    parts["v2 sampling"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    feat_fake, probs_fake = ext(fake, batch=256)
+    feat_real, _ = ext(ram_data["images"][:N_FILES].astype(np.float32)
+                       / 127.5 - 1.0, batch=256)
+    parts["features (fake + real)"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    fid_val = fid_from_features(feat_real, feat_fake)
+    kid_from_features(feat_real, feat_fake)
+    inception_score(probs_fake)
+    parts["host FID + KID + IS"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    scores = evaluate(ecfg, g_eval, seed=0, real_images=ram_data["images"])
+    parts["evaluate() (real features cached)"] = time.perf_counter() - t0
+    counts = read_counts("evaluate cdcgan_celeba64")
+    require(counts["v2"] == 2 * (N_FILES // 256), f"evaluate launches "
+            f"{counts}")
+    require(abs(scores["fid"] - fid_val) <= 1e-6 * max(1.0, abs(fid_val)),
+            f"evaluate() FID {scores['fid']} vs its parts' {fid_val}")
+    log(f"[small] evaluate() of {N_FILES} samples by part (s): "
+        + ", ".join(f"{k} {v:.4f}" for k, v in parts.items())
+        + f"; FID {fid_val:.4f}; card {card()}")
+    del ram_tr, g_eval
+
+    # -- 14b. the extractors and the augmentation, card against CPU --------
+    from tpugan_torch.eval import features, inception
+    from tpugan_torch.ops import augment
+
+    x256 = ram_data["images"][:256].astype(np.float32) / 127.5 - 1.0
+    fc, pc = ext(x256, batch=256)
+    fr, pr = make_extractor(3, "proxy", device="cpu")(x256, batch=256)
+    err = float(np.abs(fc - fr).max() / np.abs(fr).max())
+    require(err <= 1e-4 and float(np.abs(pc - pr).max()) <= 1e-3,
+            f"proxy features card vs CPU: {err}")
+    proxy_ms = time_host(lambda: ext(x256, batch=256), 5)
+    params = inception.init_random(0)
+    x64 = x256[:64]
+    inc_c = features.inception_extractor(params, device=dev)
+    ic, _ = inc_c(x64)
+    ir, _ = features.inception_extractor(params, device="cpu")(x64)
+    inc_err = float(np.abs(ic - ir).max() / np.abs(ir).max())
+    require(inc_err <= 1e-4, f"InceptionV3 card vs CPU: {inc_err}")
+    inc_ms = time_host(lambda: inc_c(x64), 3)
+    xt = torch.from_numpy(x256[:TRAIN_BATCH])
+    key = threefry.prng_key(7)
+    policy = ("color", "translation", "cutout")
+    aug_err = {}
+    for dt in (torch.float32, bf):
+        ref = augment.apply_policy(xt.to(dt), key, policy, 0.6).float()
+        got = augment.apply_policy(xt.to(dt).to(dev), key, policy,
+                                   torch.tensor(0.6, device=dev))
+        aug_err[str(dt)] = (got.float().cpu() - ref).abs().max().item()
+        tol = 1e-6 if dt == torch.float32 else 2.0 ** -7 * ref.abs().max()
+        require(aug_err[str(dt)] <= tol, f"apply_policy {dt}: {aug_err}")
+    aug_ms_batch = time_host(lambda: augment.apply_policy(
+        xt.to(dev), key, policy, torch.tensor(0.6, device=dev)), 20)
+    log(f"[extract] proxy card vs CPU on 256 images: max rel {err:.2e}, "
+        f"{proxy_ms:.4f} ms per batch of 256; InceptionV3 (init_random) "
+        f"on 64 images at 64 px -> 299: max rel {inc_err:.2e}, "
+        f"{inc_ms:.4f} ms per batch of 64; apply_policy card vs CPU max "
+        f"|diff| {aug_err}, {aug_ms_batch:.4f} ms per batch of "
+        f"{TRAIN_BATCH} (host draws included); card {card()}")
+    del ram_data
+
+    # -- 15. report ---------------------------------------------------------
     for key, rep_k in report.items():
         by_path = {p: c[key] for p, c in path_counts.items() if c[key]}
         rep_k["launches"] = sum(by_path.values())

@@ -41,11 +41,12 @@ def twin_generators(preset, overrides, precision="fp32", seed=0,
     return cfg, g, params, state, pcfg, tg.eval()
 
 
-def twin_train_states(preset, overrides):
+def twin_train_states(preset, overrides, **fields):
     """(cfg, jax g, jax d, jax TrainState, port cfg, port TrainState): the
-    JAX state from ``create_train_state``, carried into the port's (both
-    modules, the optimizers' moments, the key and the step).  The JAX state
-    is copied to the host first, so a donating JAX step can consume it."""
+    JAX state from ``create_train_state`` (its ``fields`` replaced, e.g.
+    ``ada_p``), carried into the port's (both modules, the optimizers'
+    moments, ADA's state, the key and the step).  The JAX state is copied
+    to the host first, so a donating JAX step can consume it."""
     from tpugan.train.state import create_train_state
     from tpugan_torch.ckpt.from_jax import load_jax_train_state
     from tpugan_torch.models.registry import build_models as port_models
@@ -55,6 +56,9 @@ def twin_train_states(preset, overrides):
     cfg = get_preset(preset).override(overrides)
     g, d = build_models(cfg.model, cfg.train.precision)
     state = create_train_state(cfg, g, d)
+    if fields:
+        state = state.replace(**{k: jnp.asarray(v) for k, v in
+                                 fields.items()})
     pcfg = port_preset(preset).override(overrides)
     tg, td = port_models(pcfg.model, pcfg.train.precision,
                          fuse_stats=pcfg.train.fuse_stats, device="cpu",
@@ -70,9 +74,11 @@ def module_arrays(module):
             for k, v in module.state_dict().items()}
 
 
-def run_twin_steps(preset, overrides, calls=3, resident=False, seed=5):
+def run_twin_steps(preset, overrides, calls=3, resident=False, seed=5,
+                   **fields):
     """``calls`` calls of the JAX train step and the port's from one carried
-    state (``twin_train_states``), on the same synthetic uint8 batches: a
+    state (``twin_train_states``, ``fields`` replaced in the JAX state), on
+    the same synthetic uint8 batches: a
     fresh slice a call (K = ``train.steps_per_call`` stacked slices when
     K > 1), or the whole dataset held resident.  Returns (JAX state on the
     host, port state, JAX metrics, port metrics), the metrics as floats a
@@ -82,7 +88,8 @@ def run_twin_steps(preset, overrides, calls=3, resident=False, seed=5):
     from tpugan.train.steps import build_train_step
     from tpugan_torch.train.steps import build_train_step as port_step
 
-    cfg, g, d, jstate, pcfg, pstate = twin_train_states(preset, overrides)
+    cfg, g, d, jstate, pcfg, pstate = twin_train_states(preset, overrides,
+                                                        **fields)
     k, bsz = max(cfg.train.steps_per_call, 1), cfg.data.batch_size
     cond = cfg.model.arch == "cdcgan"
     n = cfg.data.synthetic_size if resident else calls * k * bsz
@@ -128,7 +135,8 @@ def assert_metrics_close(jms, pms, rtol=1e-4, atol=1e-4):
 def assert_state_close(jstate, pstate, atol, buf_tol=1e-4):
     """Parameters within ``atol``, BatchNorm statistics and spectral norm's
     u within ``buf_tol`` (relative and absolute), the EMA of G within
-    ``atol``; the step and the key exact."""
+    ``atol``; the step, the key and ADA's p exact, ADA's r_t within an
+    ulp."""
     from tpugan_torch.ckpt.from_jax import flatten
 
     mods = [(pstate.g, jstate.params_g, jstate.state_g),
@@ -145,6 +153,13 @@ def assert_state_close(jstate, pstate, atol, buf_tol=1e-4):
                                        atol=buf_tol, err_msg=k)
     assert pstate.step == int(jstate.step)
     np.testing.assert_array_equal(pstate.rng, np.asarray(jstate.rng))
+    if jstate.ada_p is not None:
+        # p exactly; r_t's blend within an ulp (XLA may contract it into a
+        # fused multiply-add)
+        assert pstate.ada_p.item() == float(jstate.ada_p)
+        np.testing.assert_allclose(pstate.ada_rt.item(),
+                                   float(jstate.ada_rt), rtol=2.4e-7,
+                                   atol=1e-9)
 
 
 def port_states_equal(a, b):
@@ -152,6 +167,10 @@ def port_states_equal(a, b):
     optimizers' moments and counts, key and step."""
     sa, sb = a.state_dict(), b.state_dict()
     assert sa["step"] == sb["step"] and sa["rng"] == sb["rng"]
+    for key in ("ada_p", "ada_rt"):
+        assert (sa[key] is None) == (sb[key] is None), key
+        if sa[key] is not None:
+            assert torch.equal(sa[key], sb[key]), key
     for key in ("g", "d", "g_ema"):
         if sa[key] is None or sb[key] is None:
             assert sa[key] is None and sb[key] is None, key

@@ -63,12 +63,19 @@ def test_roundtrip_is_bit_exact(tmp_path):
     ("sngan_cifar10", STATEFUL),
     ("dcgan_cifar10", {**STATEFUL, "data.device_resident": True,
                        "data.sampling": "epoch", "data.synthetic_size": 9}),
-], ids=["host_pipeline_sn_ema_linear", "resident_epoch_sampling"])
+    # ADA with a target below any r_t: p climbs 0.2 a step (batch 6,
+    # ada_kimg 0.03), so the gates draw at p strictly between 0 and 1
+    ("sngan_cifar10", {**STATEFUL,
+                       "train.augment": "color,translation,cutout",
+                       "train.ada_target": -1.0, "train.ada_kimg": 0.03}),
+], ids=["host_pipeline_sn_ema_linear", "resident_epoch_sampling",
+        "ada_augment"])
 def test_resume_equals_the_uninterrupted_run(tmp_path, preset, over):
     """4 steps, a checkpoint, resume, 4 more == 8 steps, bit for bit: the
-    modules, the EMA, the moments and counts (so the decayed LR), the key
-    and the data order (the host pipeline fast-forwards; the resident
-    epochs derive from the step: batch 6 of 9 images straddles epochs)."""
+    modules, the EMA, the moments and counts (so the decayed LR), ADA's p
+    and r_t, the key and the data order (the host pipeline fast-forwards;
+    the resident epochs derive from the step: batch 6 of 9 images
+    straddles epochs)."""
     full = Trainer(_cfg(tmp_path, preset, "full", **over,
                         **{"train.ckpt_every": 0}), device="cpu")
     full.train(8)
@@ -79,6 +86,8 @@ def test_resume_equals_the_uninterrupted_run(tmp_path, preset, over):
                                      half_cfg.train.ckpt_dir}), device="cpu")
     res.train(8)
     port_states_equal(full.state, res.state)
+    if full.state.ada_p is not None:
+        assert 0.0 < full.state.ada_p.item() <= 1.0
     lr = full.state.opt_d.param_groups[0]["lr"]
     assert 0 < lr < full.cfg.optim.lr_d  # the decay had started
     # the resumed run logged steps 5..8 only

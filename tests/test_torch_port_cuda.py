@@ -613,3 +613,59 @@ def test_eval_d_under_pallas_matches_xla(cuda, preset, blocks):
         (got - ref).abs().max().item())
     for k, u in us.items():
         assert torch.equal(d.state_dict()[k], u), k
+
+
+# -- augmentation and the eval extractors on the card ------------------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, BF])
+def test_augment_on_cuda_matches_cpu(cuda, dtype):
+    """The full policy from one key, gated at a device p (ADA's): the same
+    draws (threefry on the host), so fp32 within 1e-6 (the means' sum
+    order) and bf16 within one bf16 ulp of the largest value; the gradient
+    flows through on the card."""
+    from tpugan_torch.ops import augment
+    from tpugan_torch.sample import threefry
+
+    x = torch.from_numpy(np.random.default_rng(0).uniform(
+        -1, 1, (16, 64, 64, 3)).astype(np.float32)).to(dtype)
+    key = threefry.prng_key(5)
+    policy = ("color", "translation", "cutout")
+    p = torch.tensor(0.7)
+    ref = augment.apply_policy(x, key, policy, p).float()
+    xc = x.to(cuda).requires_grad_()
+    got = augment.apply_policy(xc, key, policy, p.to(cuda))
+    assert got.dtype == dtype
+    tol = 1e-6 if dtype == torch.float32 else 2.0 ** -7 * ref.abs().max()
+    assert (got.float().cpu() - ref).abs().max().item() <= tol
+    got.float().square().sum().backward()
+    assert bool(torch.isfinite(xc.grad).all())
+
+
+def test_proxy_extractor_on_cuda_matches_cpu(cuda):
+    """The proxy network (weights and fitted head) built on the card
+    against the CPU's on the same images, TF32 off: features within 1e-4
+    of their scale (fp32 conv sum order on two devices, and a head fit by
+    300 GD steps on each)."""
+    from tpugan_torch.eval import features
+
+    torch.backends.cudnn.allow_tf32 = False
+    x = np.random.default_rng(1).uniform(-1, 1, (64, 64, 64, 3)).astype(
+        np.float32)
+    fc, pc = features.make_extractor(3, "proxy", device=cuda)(x)
+    fr, pr = features.make_extractor(3, "proxy", device="cpu")(x)
+    assert np.abs(fc - fr).max() <= 1e-4 * np.abs(fr).max()
+    assert np.abs(pc - pr).max() <= 1e-3
+
+
+def test_inception_on_cuda_matches_cpu(cuda):
+    """InceptionV3 with ``init_random`` weights on 4 images at 64 px resized
+    to 299, TF32 off: features within 1e-4 of their scale."""
+    from tpugan_torch.eval import features, inception
+
+    torch.backends.cudnn.allow_tf32 = False
+    params = inception.init_random(0)
+    x = np.random.default_rng(2).uniform(-1, 1, (4, 64, 64, 3)).astype(
+        np.float32)
+    fc, _ = features.inception_extractor(params, device=cuda)(x)
+    fr, _ = features.inception_extractor(params, device="cpu")(x)
+    assert np.abs(fc - fr).max() <= 1e-4 * np.abs(fr).max()

@@ -2,7 +2,7 @@
 step: the linear LR schedule (to float32 exactness, in D's and in G's count
 domain), the EMA of G, the device-resident batch (``threefry.permutation``
 and ``epoch_indices`` bit for bit, resident steps with both samplings), and
-``ckpt/from_jax`` carrying the EMA and the schedule's count.
+``ckpt/from_jax`` carrying the EMA, the schedule's count and ADA's state.
 
 Tolerances are ``tests/test_torch_port_train_step.py``'s: losses 1e-4
 relative plus 1e-4 absolute, parameters within lr / 20, BatchNorm
@@ -20,10 +20,12 @@ from _torch_port_common import (assert_metrics_close, assert_state_close,
                                 module_arrays, run_twin_steps, to_numpy,
                                 twin_train_states)
 from tpugan.configs import get_preset
+from tpugan.models import build_models as jax_models
+from tpugan.train.state import create_train_state as jax_train_state
 from tpugan.train.state import lr_schedule as jax_lr_schedule
 from tpugan.train.steps import build_train_step
 from tpugan.train.steps import epoch_indices as jax_epoch_indices
-from tpugan_torch.ckpt.from_jax import flatten
+from tpugan_torch.ckpt.from_jax import flatten, load_jax_train_state
 from tpugan_torch.configs import get_preset as port_preset
 from tpugan_torch.models.registry import build_models
 from tpugan_torch.sample import threefry
@@ -274,3 +276,36 @@ def test_from_jax_carries_ema_and_schedule_count(preset, over):
                          [{k: v.item() for k, v in pm.items()}])
     assert_state_close(jax.device_get(jstate), pstate,
                        atol=max(cfg.optim.lr_g, cfg.optim.lr_d) / 20)
+
+
+# -- ADA's state: TrainState fields, from_jax ------------------------------
+
+def test_ada_state_is_jaxs_and_carries():
+    """Under ada_target the port's state holds ``ada_p`` and ``ada_rt`` as
+    0-dim float32 tensors, zero as JAX's start, None without ADA; from_jax
+    carries a JAX state's values exactly, and refuses a state whose ADA
+    fields disagree with the port's."""
+    over = {**TINY, "train.augment": "color",
+            "train.ada_target": 0.6}
+    cfg = get_preset("dcgan_cifar10").override(over)
+    jg, jd = jax_models(cfg.model, "fp32")
+    fresh = jax_train_state(cfg, jg, jd)
+    pcfg = port_preset("dcgan_cifar10").override(over)
+    tg, td = build_models(pcfg.model, "fp32", device="cpu",
+                          generator=torch.Generator().manual_seed(0))
+    pstate = create_train_state(pcfg, tg, td)
+    for k in ("ada_p", "ada_rt"):
+        got = getattr(pstate, k)
+        assert got.dtype == torch.float32 and got.shape == ()
+        assert got.item() == float(getattr(fresh, k)) == 0.0
+    plain = create_train_state(
+        port_preset("dcgan_cifar10").override(TINY), tg, td)
+    assert plain.ada_p is None and plain.ada_rt is None
+
+    *_, jstate, _, carried = twin_train_states(
+        "dcgan_cifar10", over, ada_p=np.float32(0.25),
+        ada_rt=np.float32(-0.1))
+    assert carried.ada_p.item() == 0.25
+    assert carried.ada_rt.item() == float(np.float32(-0.1))
+    with pytest.raises(ValueError, match="ada_p"):
+        load_jax_train_state(plain, jax.device_get(jstate))

@@ -275,3 +275,73 @@ def test_steps_per_call_is_k_single_calls_and_jaxs_scan():
             data["images"][6 * i:6 * (i + 1)])})
     assert {k: v.item() for k, v in m.items()} == pms[-1]
     port_states_equal(single, pstate)
+
+
+# -- augmentation (train.augment) and ADA (train.ada_target) ----------------
+
+AUG = {"train.augment": "color,translation,cutout"}
+
+
+@pytest.mark.parametrize("preset,over", [
+    # alternating: fresh draws for reals and fakes, G's loss through the
+    # policy, with hflip and the conv + BN-statistics path
+    ("dcgan_celeba64", {"train.fuse_stats": "on"}),
+    # one draw on the fake shared by both pulls; Adam's eps at 1e-4 (module
+    # doc: one D gradient of this case sits within sum-order noise of zero)
+    ("dcgan_celeba64", {"train.fused_prop": True, "optim.eps": 1e-4}),
+    # split(k_aug, 2) per microbatch; Adam's eps at 1e-4 as in
+    # test_grad_accum_matches_jax
+    ("dcgan_celeba64", {"train.grad_accum": 2, "optim.eps": 1e-4}),
+    # the penalty's interpolates between the augmented pair
+    ("wgan_gp_cifar10", {"loss.n_critic": 2}),
+], ids=["alternating", "fused_prop", "grad_accum", "wgan_gp"])
+def test_augment_steps_match_jax(preset, over):
+    """Three steps under the full policy from one carried state: the
+    state's key splits into 10, the policy's draws are JAX's, and the
+    zeros that cutout and translation make reach LeakyReLU's kink, where
+    both packages take slope 1."""
+    jstate, pstate, jms, pms = run_twin_steps(
+        preset, {**TINY, **AUG, **over}, calls=3)
+    assert_metrics_close(jms, pms)
+    assert_state_close(jstate, pstate, atol=2e-4 / 20)
+
+
+@pytest.mark.parametrize("preset,over", [
+    ("cdcgan_celeba64", {"optim.eps": 1e-4}),
+    ("dcgan_celeba64", {"train.fused_prop": True, "optim.eps": 1e-4}),
+], ids=["cdcgan_celeba64", "fused_prop"])
+def test_ada_steps_match_jax(preset, over):
+    """ADA from p = 0.5 (carried in the JAX state) with p moving 0.1 a step
+    (batch 6, ada_kimg 0.06): each op gated per sample on the device's p,
+    r_t folded at ada_rt_alpha(6).  ``ada_p`` and ``ada_rt_batch`` are held
+    exactly: rt_batch is a mean of signs, exact unless a real logit's sign
+    differed between the packages, which then fails here; ``ada_rt``
+    within an ulp (XLA may contract its blend into a fused multiply-add).
+    The conditional case at Adam's eps of 1e-4 (module doc)."""
+    over = {**TINY, **AUG, **over, "train.ada_target": 0.6,
+            "train.ada_kimg": 0.06}
+    jstate, pstate, jms, pms = run_twin_steps(preset, over, calls=3,
+                                              ada_p=np.float32(0.5),
+                                              ada_rt=np.float32(0.0))
+    assert_metrics_close(jms, pms)
+    assert_state_close(jstate, pstate, atol=2e-4 / 20)
+    for jm, pm in zip(jms, pms):
+        assert pm["ada_p"] == jm["ada_p"]
+        assert pm["ada_rt_batch"] == jm["ada_rt_batch"]
+        np.testing.assert_allclose(pm["ada_rt"], jm["ada_rt"], rtol=2.4e-7,
+                                   atol=1e-9)
+    ps = [m["ada_p"] for m in pms]
+    assert all(0.0 <= p <= 1.0 for p in ps) and ps[0] != 0.5
+    assert len(set(ps)) == 3  # p moved at every step
+
+
+@pytest.mark.parametrize("over,match", [
+    ({"train.ada_target": 0.6}, "requires train.augment"),
+    ({**AUG, "train.ada_target": 0.6, "loss.kind": "lsgan"},
+     "zero-calibrated"),
+    ({"train.augment": "color,blur"}, "unknown augment op"),
+])
+def test_augment_guards_raise(over, match):
+    cfg = port_preset("dcgan_cifar10").override({**TINY, **over})
+    with pytest.raises(ValueError, match=match):
+        port_step(cfg, None, None)

@@ -2,12 +2,17 @@
 carried state logs the same losses (``metrics.jsonl``, ``log_every=1``) on
 the synthetic dataset, with fuse_stats on and off, ``train(2)`` of the
 conditional preset on the dataset's labels, and the fast preset (FusedProp,
-resident data, steps a call); the input pipeline yields the JAX pipeline's
-batches; options the port does not take raise, and so does conditional
-training on labels that are all zero; the options ported since train."""
+resident data, steps a call); ``eval_every`` and ``keep_best`` log the JAX
+trainer's FID and bank its watermark, which a resumed run keeps; the input
+pipeline yields the JAX pipeline's batches; options the port does not take
+raise, and so does conditional training on labels that are all zero; the
+options ported since train, the dataset files among them."""
 
+import gzip
 import json
 import os
+import pickle
+import struct
 
 import jax
 import numpy as np
@@ -100,6 +105,67 @@ def test_conditional_trainer_logs_the_jax_trainers_losses(tmp_path):
     assert pngs == ["samples_0000001.png", "samples_0000002.png"]
 
 
+def _best_meta(ckpt_dir):
+    with open(os.path.join(ckpt_dir, "best", "best_fid.json")) as f:
+        return json.load(f)
+
+
+def test_eval_and_keep_best_match_the_jax_trainer(tmp_path):
+    """``eval_every=1`` and ``keep_best`` over two steps from one carried
+    state: the logged FID and KID at each step within 1e-3 relative of the
+    JAX trainer's (independent proxy extractors, fp32 generators that agree
+    to the step's tolerance), the same steps banked as best, and the
+    watermark in ``best/best_fid.json``.  A run resumed into the same
+    ckpt_dir keeps an unbeaten watermark and its checkpoint; a fresh run
+    clears the stale ``best/`` on its first train()."""
+    over = {**TINY, "data.synthetic_size": 24, "train.eval_every": 1,
+            "train.keep_best": True, "eval.fid_n": 12, "eval.fid_batch": 6,
+            "train.kernels": "xla", "train.sample_every": 0}
+    runs = {}
+    for pkg, preset in (("jax", get_preset), ("port", port_preset)):
+        runs[pkg] = preset("dcgan_cifar10").override({
+            **over, "train.out_dir": str(tmp_path / pkg),
+            "train.ckpt_dir": str(tmp_path / f"{pkg}_ckpt")})
+    jt = JaxTrainer(runs["jax"])
+    pt = Trainer(runs["port"], device="cpu")
+    load_jax_train_state(pt.state, jax.device_get(jt.state))
+    jt.train(2)
+    pt.train(2)
+    ref = [r for r in _metrics(tmp_path / "jax") if "fid" in r]
+    got = [r for r in _metrics(tmp_path / "port") if "fid" in r]
+    assert [r["step"] for r in got] == [1, 2] == [r["step"] for r in ref]
+    for r, g in zip(ref, got):
+        for k in ("fid", "kid"):
+            np.testing.assert_allclose(g[k], r[k], rtol=1e-3,
+                                       err_msg=f"step {g['step']} {k}")
+    best = [[r["step"] for r in _metrics(tmp_path / pkg) if "best_fid" in r]
+            for pkg in ("jax", "port")]
+    assert best[0] == best[1] and best[1]
+    jmeta = _best_meta(runs["jax"].train.ckpt_dir)
+    pmeta = _best_meta(runs["port"].train.ckpt_dir)
+    assert pmeta["step"] == jmeta["step"] == best[1][-1]
+    np.testing.assert_allclose(pmeta["fid"], jmeta["fid"], rtol=1e-3)
+    assert pt._load_best_meta() == pmeta
+    best_dir = os.path.join(runs["port"].train.ckpt_dir, "best")
+    assert sorted(os.listdir(best_dir)) == sorted(
+        [f"{pmeta['step']}.pt", "best_fid.json", "config.json"])
+
+    # resumed: an unbeatable banked watermark survives the next eval
+    with open(os.path.join(best_dir, "best_fid.json"), "w") as f:
+        json.dump({"fid": -1.0, "step": pmeta["step"]}, f)
+    rt = Trainer(runs["port"].override(
+        {"train.resume": runs["port"].train.ckpt_dir}), device="cpu")
+    rt.train(3)
+    assert rt.state.step == 3
+    assert _best_meta(runs["port"].train.ckpt_dir) == {
+        "fid": -1.0, "step": pmeta["step"]}
+    assert f"{pmeta['step']}.pt" in os.listdir(best_dir)
+    assert np.isfinite(rt.evaluate(seed=1)["fid"])
+    # fresh: the stale best/ is cleared, and this run's best banked
+    Trainer(runs["port"], device="cpu").train(1)
+    assert _best_meta(runs["port"].train.ckpt_dir)["step"] == 1
+
+
 def test_conditional_training_refuses_all_zero_labels(tmp_path):
     cfg = port_preset("cdcgan_celeba64").override(
         {**TINY, "train.out_dir": str(tmp_path)})
@@ -129,17 +195,9 @@ def test_pipeline_yields_the_jax_pipelines_batches():
 
 
 @pytest.mark.parametrize("override,match", [
-    ({"train.keep_best": True}, "keep_best"),
-    ({"train.eval_every": 5}, "eval_every"),
     ({"train.mesh_shape": 2}, "mesh_shape"),
     ({"train.spatial_shards": 2}, "spatial_shards"),
     ({"train.fsdp_shards": 2}, "fsdp_shards"),
-    ({"train.augment": "color"}, "augment"),
-    ({"train.augment": "translation,cutout"}, "augment"),
-    ({"train.ada_target": 0.6}, "ada_target"),
-    ({"data.dataset": "cifar10"}, "cifar10"),
-    ({"data.dataset": "mnist"}, "mnist"),
-    ({"data.dataset": "celeba"}, "celeba"),
 ])
 def test_unported_options_raise(tmp_path, override, match):
     cfg = port_preset("dcgan_cifar10").override(
@@ -147,6 +205,41 @@ def test_unported_options_raise(tmp_path, override, match):
          "train.ckpt_dir": str(tmp_path / "ckpt"), **override})
     with pytest.raises(NotImplementedError, match=match):
         Trainer(cfg, device="cpu").train(1)
+
+
+def _write_dataset(name: str, root) -> None:
+    """Small files in each reader's format: 13 images (two batches of 6)."""
+    rng = np.random.default_rng(0)
+    os.makedirs(root, exist_ok=True)
+    if name == "mnist":
+        for fname, arr, magic in (
+                ("train-images-idx3-ubyte.gz",
+                 rng.integers(0, 256, (13, 28, 28)), 0x803),
+                ("train-labels-idx1-ubyte.gz",
+                 rng.integers(0, 10, (13,)), 0x801)):
+            arr = arr.astype(np.uint8)
+            with gzip.open(os.path.join(root, fname), "wb") as f:
+                f.write(struct.pack(">I", magic))
+                f.write(struct.pack(f">{arr.ndim}I", *arr.shape))
+                f.write(arr.tobytes())
+    elif name == "cifar10":
+        for i in range(1, 6):
+            n = 3 if i < 5 else 1
+            with open(os.path.join(root, f"data_batch_{i}"), "wb") as f:
+                pickle.dump({b"data": rng.integers(0, 256, (n, 3072)).astype(
+                    np.uint8), b"labels": [int(v) for v in rng.integers(
+                        0, 10, n)]}, f)
+    else:  # a CelebA folder at the aligned geometry
+        from PIL import Image
+
+        os.makedirs(os.path.join(root, "img_align_celeba"))
+        for i in range(13):
+            Image.fromarray(rng.integers(0, 256, (218, 178, 3)).astype(
+                np.uint8)).save(os.path.join(root, "img_align_celeba",
+                                             f"{i:06d}.png"))
+
+
+EVAL = {"eval.fid_n": 8, "eval.fid_batch": 8}
 
 
 @pytest.mark.parametrize("override", [
@@ -158,12 +251,27 @@ def test_unported_options_raise(tmp_path, override, match):
     {"train.ema": 0.999},
     {"data.device_resident": True},
     {"optim.schedule": "linear"},
+    {"train.keep_best": True, "train.eval_every": 1, **EVAL},
+    {"train.eval_every": 5, **EVAL},
+    {"train.augment": "color"},
+    {"train.augment": "translation,cutout"},
+    {"train.augment": "color", "train.ada_target": 0.6},
+    {"data.dataset": "cifar10"},
+    {"data.dataset": "mnist"},
+    {"data.dataset": "celeba"},
 ], ids=["ckpt_every", "resume", "fused_prop", "grad_accum",
-        "steps_per_call", "ema", "device_resident", "linear"])
+        "steps_per_call", "ema", "device_resident", "linear", "keep_best",
+        "eval_every", "augment_color", "augment_translation_cutout",
+        "ada_target", "cifar10", "mnist", "celeba"])
 def test_ported_options_train(tmp_path, override):
     """The options that raised before the port took them: each trains two
-    steps and leaves its final checkpoint."""
+    steps and leaves its final checkpoint (a dataset read from files the
+    test writes)."""
     ckpt = str(tmp_path / "ckpt")
+    name = override.get("data.dataset")
+    if name:
+        _write_dataset(name, tmp_path / "data")
+        override = {**override, "data.data_dir": str(tmp_path / "data")}
     if override.get("train.resume"):
         # a checkpoint to resume from
         Trainer(port_preset("dcgan_cifar10").override(
@@ -176,11 +284,20 @@ def test_ported_options_train(tmp_path, override):
     tr = Trainer(cfg, device="cpu")
     tr.train(2)
     assert tr.state.step == 2
-    assert [r["step"] for r in _metrics(tmp_path / "out")] == (
+    logged = _metrics(tmp_path / "out")
+    assert [r["step"] for r in logged if "loss_d" in r] == (
         [2] if cfg.train.steps_per_call == 2 or cfg.train.resume else [1, 2])
     assert os.path.exists(os.path.join(ckpt, "2.pt"))
     if cfg.train.ckpt_every:
         assert os.path.exists(os.path.join(ckpt, "1.pt"))
+    if cfg.train.eval_every:
+        # every eval_every steps and at the last
+        assert [r["step"] for r in logged if "fid" in r] == (
+            [1, 2] if cfg.train.eval_every == 1 else [2])
+    if cfg.train.keep_best:
+        assert tr._load_best_meta()["step"] in (1, 2)
+    if cfg.train.ada_target:
+        assert all("ada_p" in r for r in logged if "loss_d" in r)
 
 
 def test_fast_preset_logs_the_jax_trainers_losses(tmp_path):
@@ -223,8 +340,11 @@ def test_label_smoothing_is_refused_where_it_means_nothing():
         Trainer(cfg, device="cpu")
 
 
-def test_real_dataset_readers_raise():
-    with pytest.raises(NotImplementedError, match="Data"):
-        load_dataset("cifar10", image_size=32, channels=3)
+def test_real_dataset_readers_raise(tmp_path):
+    """A reader whose files are absent raises FileNotFoundError; an
+    unknown dataset name raises ValueError."""
+    for name in ("cifar10", "mnist", "celeba"):
+        with pytest.raises(FileNotFoundError):
+            load_dataset(name, str(tmp_path), image_size=32, channels=3)
     with pytest.raises(ValueError, match="unknown dataset"):
-        load_dataset("imagenet", image_size=32, channels=3)
+        load_dataset("imagenet", str(tmp_path), image_size=32, channels=3)

@@ -9,10 +9,12 @@ never imports ``jax``.
 
 Ported so far: the eval-mode generator serving path (configs, ops, nn,
 generator models, sampler, images, HTTP server, JAX-weight import) and
-single-device training of every preset on the synthetic dataset, with the
-whole training state (EMA, LR schedule, checkpoints and exact resume) and
-the step options (FusedProp, grad_accum, steps_per_call, remat, a
-device-resident dataset).
+single-device training of every preset from the dataset files (MNIST,
+CIFAR-10, CelebA in RAM or streaming) or the synthetic set, with the whole
+training state (EMA, LR schedule, checkpoints and exact resume), the step
+options (FusedProp, grad_accum, steps_per_call, remat, a device-resident
+dataset), DiffAugment and ADA, and in-training FID / KID / IS with
+``keep_best`` (``eval/``).
 """
 
 __version__ = "0.1.0"

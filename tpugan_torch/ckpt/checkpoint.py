@@ -4,8 +4,8 @@
 One checkpoint carries everything an exact resume needs: G's and D's
 ``state_dict`` (parameters, BatchNorm running statistics, spectral norm's
 ``u``), both optimizers' ``state_dict`` (moments and update counts, so a
-linear LR schedule resumes at its count), the EMA of G, the threefry key
-(as two ints) and the step (``TrainState.state_dict``).  Restoring it
+linear LR schedule resumes at its count), the EMA of G, ADA's p and r_t,
+the threefry key (as two ints) and the step (``TrainState.state_dict``).  Restoring it
 continues training bit for bit, the noise stream and the data order
 included.
 
@@ -33,7 +33,9 @@ import torch
 _NAME = re.compile(r"^(\d+)\.pt$")
 
 
-def _atomic_write(path: str, write) -> None:
+def atomic_write(path: str, write) -> None:
+    """``write(tmp)`` to a temporary name beside ``path``, then move it into
+    place: a reader or a crash never sees a torn file."""
     tmp = f"{path}.tmp{os.getpid()}"
     try:
         write(tmp)
@@ -63,7 +65,7 @@ class CheckpointManager:
     def save(self, step: int, state: dict, config_json: str = "") -> None:
         """Write ``state`` (a ``TrainState.state_dict()``) as ``step``,
         then drop all but the newest ``max_to_keep`` steps."""
-        _atomic_write(self.path(step), lambda p: torch.save(state, p))
+        atomic_write(self.path(step), lambda p: torch.save(state, p))
         for old in self.all_steps()[:-self.max_to_keep]:
             os.remove(self.path(old))
         if config_json:
@@ -71,7 +73,7 @@ class CheckpointManager:
                 with open(p, "w") as f:
                     f.write(config_json)
 
-            _atomic_write(os.path.join(self.directory, "config.json"), write)
+            atomic_write(os.path.join(self.directory, "config.json"), write)
 
     def restore(self, step: Optional[int] = None, map_location=None) -> dict:
         """The saved state of ``step`` (default: the latest), its tensors

@@ -13,7 +13,8 @@ so the optimizer moments still match ``named_parameters()``.
 
 ``load_jax_train_state`` carries a whole JAX ``TrainState`` (both modules,
 the EMA of G, the optimizers' moments and counts, the LR schedule's count,
-the run's key and step) into a port ``TrainState``.  It reads the JAX state by field name and the optax states
+ADA's ``ada_p`` and ``ada_rt``, the run's key and step) into a port
+``TrainState``.  It reads the JAX state by field name and the optax states
 by their fields, and imports nothing of JAX.
 """
 
@@ -113,13 +114,12 @@ def load_jax_train_state(state, jax_state):
     """Copy a JAX ``TrainState`` (host copy, e.g. ``jax.device_get`` of it)
     into the port's ``TrainState`` in place; returns it.  The EMA of G
     (``params_g_ema``, with G's own BatchNorm state) goes into
-    ``state.g_ema``; both or neither must have one.  ADA's fields must be
-    None."""
+    ``state.g_ema``, ADA's ``ada_p`` and ``ada_rt`` into the state's; both
+    or neither must have each."""
     src = dict(jax_state)
-    for k in ("ada_p", "ada_rt"):
-        if src.get(k) is not None:
-            raise NotImplementedError(f"{k} is not ported yet (ROADMAP.md, "
-                                      f"Queue A: 'Augment')")
+    if (src.get("ada_p") is None) != (state.ada_p is None):
+        raise ValueError("ada_p and the port state's disagree "
+                         "(train.ada_target must match)")
     if (src.get("params_g_ema") is None) != (state.g_ema is None):
         raise ValueError("params_g_ema and the port state's g_ema disagree "
                          "(train.ema must match)")
@@ -129,6 +129,10 @@ def load_jax_train_state(state, jax_state):
         load_jax_module(state.g_ema, src["params_g_ema"], src["state_g"])
     _load_optimizer(state.opt_g, state.g, src["opt_g"])
     _load_optimizer(state.opt_d, state.d, src["opt_d"])
+    if state.ada_p is not None:
+        dev = state.ada_p.device
+        state.ada_p = _tensor(src["ada_p"]).to(dev)
+        state.ada_rt = _tensor(src["ada_rt"]).to(dev)
     state.rng = np.array(src["rng"], np.uint32)
     state.step = int(np.asarray(src["step"]))
     return state

@@ -2,9 +2,11 @@
 
 - Batches travel as uint8 (4x fewer bytes than float32); the train step
   normalizes them to [-1, 1] on the device.
-- A producer thread gathers the next batches with numpy and copies them
-  from pinned host memory to the device while the device runs the current
-  step.
+- A producer thread assembles the next batches and copies them from
+  pinned host memory to the device while the device runs the current
+  step: an in-RAM dataset through the C++ gather (``data/native.py``), a
+  streaming folder (``StreamingImageFolder``) by decoding the batch's
+  files in its thread pool.
 - The order is the JAX package's: epoch e is the permutation of
   ``default_rng(SeedSequence([seed, e]))``, so both packages see the same
   batches, and ``start_step`` resumes the stream where a run left off.
@@ -21,6 +23,7 @@ from typing import Dict, Iterator
 import numpy as np
 import torch
 
+from tpugan_torch.data import native
 from tpugan_torch.utils.device import resolve_device
 
 PREFETCH = 2  # batches the producer keeps ready
@@ -53,7 +56,10 @@ class make_input_pipeline:
                 np.random.SeedSequence([self.seed, epoch])).permutation(n)
             for s in range(s0, self.steps_per_epoch):
                 idx = order[s * self.batch_size:(s + 1) * self.batch_size]
-                batch = {"image": self.images[idx]}
+                if hasattr(self.images, "gather"):  # streaming folder
+                    batch = {"image": self.images.gather(idx)}
+                else:
+                    batch = {"image": native.batch_gather(self.images, idx)}
                 if self.labels is not None:
                     batch["label"] = self.labels[idx]
                 yield batch

@@ -18,10 +18,10 @@ running statistics as buffers updated in place (``mean``, ``var``).
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from tpugan_torch.ops import convs
+from tpugan_torch.ops.kernel_common import leaky_relu
 from tpugan_torch.utils.device import resolve_device
 
 # Reference init idiom: conv/dense weights ~ N(0, 0.02); BN scale ~ N(1, 0.02).
@@ -181,12 +181,15 @@ class ReLU(nn.Module):
 
 
 class LeakyReLU(nn.Module):
+    """JAX's leaky_relu, its derivative at 0 included
+    (``ops/kernel_common.leaky_relu``)."""
+
     def __init__(self, slope: float = 0.2):
         super().__init__()
         self.slope = slope
 
     def forward(self, x):
-        return F.leaky_relu(x, self.slope)
+        return leaky_relu(x, self.slope)
 
 
 class Tanh(nn.Module):

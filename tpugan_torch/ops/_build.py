@@ -9,6 +9,9 @@ kernel runs on the Hopper mainloop of ``csrc/igemm_sm90.cuh``; it needs no
 library beyond the CUDA runtime (the TMA tensor maps are encoded through
 the runtime's driver entry point).
 
+``load_host`` does the same for a host library, ``csrc/<name>.cpp``
+compiled with ``g++`` (the input pipeline's gather, ``data/native.py``).
+
 Nothing here runs at import: the CPU tests import every module, and a
 machine without a CUDA toolkit has no ``nvcc``.
 """
@@ -30,6 +33,7 @@ SOURCES = ("cuda_convt", "cuda_gen", "cuda_gen2", "cuda_conv",
            "cuda_conv_stats")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+GXX_FLAGS = ["-O3", "-shared", "-fPIC", "-pthread", "-std=c++17"]
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
@@ -52,16 +56,26 @@ def _lib_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
+def _host_lib_path(name: str) -> Path:
+    h = hashlib.sha256(" ".join(GXX_FLAGS).encode())
+    h.update((CSRC / f"{name}.cpp").read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+
+
+def _spawn(cmd: list[str], path: Path
+           ) -> tuple[subprocess.Popen, Path, Path, float]:
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = path.with_suffix(f".{os.getpid()}.tmp")
+    proc = subprocess.Popen([*cmd, "-o", str(tmp)], stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    return proc, tmp, path, time.time()
+
+
 def _start(name: str) -> tuple[subprocess.Popen, Path, Path, float] | None:
     path = _lib_path(name)
     if path.exists():
         return None
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = path.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                            stderr=subprocess.STDOUT, text=True)
-    return proc, tmp, path, time.time()
+    return _spawn([_nvcc(), *NVCC_FLAGS, str(CSRC / f"{name}.cu")], path)
 
 
 def _finish(name: str, job) -> tuple[float, str]:
@@ -70,7 +84,7 @@ def _finish(name: str, job) -> tuple[float, str]:
     proc, tmp, path, t0 = job
     out, _ = proc.communicate()
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {name}.cu:\n{out}")
+        raise RuntimeError(f"the build of {name} failed:\n{out}")
     os.replace(tmp, path)
     return time.time() - t0, out
 
@@ -90,6 +104,24 @@ def load(name: str) -> ctypes.CDLL:
             _finish(name, _start(name))
             _LIBS[name] = ctypes.CDLL(str(_lib_path(name)))
         return _LIBS[name]
+
+
+def load_host(name: str) -> ctypes.CDLL:
+    """The loaded host library for ``csrc/<name>.cpp``, built with ``g++``
+    if needed; a failed build raises."""
+    with _LOCK:
+        key = f"host:{name}"
+        if key not in _LIBS:
+            path = _host_lib_path(name)
+            if not path.exists():
+                gxx = shutil.which("g++")
+                if gxx is None:
+                    raise RuntimeError(f"g++ not found: {name}.cpp cannot "
+                                       f"be built on this machine")
+                _finish(name, _spawn(
+                    [gxx, *GXX_FLAGS, str(CSRC / f"{name}.cpp")], path))
+            _LIBS[key] = ctypes.CDLL(str(path))
+        return _LIBS[key]
 
 
 def check(rc: int, what: str) -> None:

@@ -37,12 +37,20 @@ def aligned(t: torch.Tensor) -> torch.Tensor:
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
+def leaky_relu(y: torch.Tensor, leak: float = 0.2) -> torch.Tensor:
+    """JAX's ``leaky_relu``: ``where(y >= 0, y, leak * y)``.  The values
+    are ``F.leaky_relu``'s; the derivative at exactly 0 is JAX's 1, where
+    PyTorch's is ``leak`` (an augmentation's zeroed or zero-padded pixels
+    make exact zeros in a layer with a zero bias)."""
+    return torch.where(y >= 0, y, y * leak)
+
+
 def act(y: torch.Tensor, kind: str, leak: float = 0.2) -> torch.Tensor:
     """Activation epilogue shared by every kernel ('none' = identity)."""
     if kind == "relu":
         return torch.relu(y)
     if kind == "leaky_relu":
-        return F.leaky_relu(y, leak)
+        return leaky_relu(y, leak)
     if kind == "tanh":
         return torch.tanh(y)
     if kind == "none":

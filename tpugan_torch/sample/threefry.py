@@ -1,9 +1,10 @@
 """The JAX random draws the sampler's determinism contract rests on, in
 numpy: ``threefry2x32``, ``PRNGKey``, ``fold_in``, ``split``, ``uniform``,
-``normal``, ``truncated_normal``, ``randint`` and ``permutation``, as JAX
-0.9 computes them with ``jax_threefry_partitionable=True``
-(``jax/_src/prng.py``, ``jax/_src/random.py``).  Integer draws,
-permutations and uniform bits are bit-exact; normal draws run XLA's float32
+``bernoulli``, ``normal``, ``truncated_normal``, ``randint`` and
+``permutation``, as JAX 0.9 computes them with
+``jax_threefry_partitionable=True`` (``jax/_src/prng.py``,
+``jax/_src/random.py``).  Integer draws, permutations, uniform bits and
+bernoulli draws are bit-exact; normal draws run XLA's float32
 ``erf_inv`` polynomial on those bits and differ from JAX by at most an ulp,
 where XLA's ``log1p`` or its fused multiply-adds round differently from
 numpy's.
@@ -86,6 +87,12 @@ def uniform(key, shape, minval=0.0, maxval=1.0) -> np.ndarray:
     floats = fbits.view(np.float32) - np.float32(1.0)
     lo, hi = np.float32(minval), np.float32(maxval)
     return np.maximum(lo, floats * (hi - lo) + lo).astype(np.float32)
+
+
+def bernoulli(key, p, shape) -> np.ndarray:
+    """``jax.random.bernoulli(key, p, shape)`` for a float32 ``p``:
+    ``uniform(key, shape) < p``, bool."""
+    return uniform(key, shape) < np.float32(p)
 
 
 # XLA's float32 erf_inv: M. Giles, "Approximating the erfinv function",

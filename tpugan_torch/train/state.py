@@ -6,7 +6,9 @@ norm's ``u``, updated in place), their two ``torch.optim`` optimizers, the
 threefry key of the run's random stream (a numpy ``uint32`` pair,
 ``sample/threefry.py``), the step counter and, under ``train.ema > 0``, the
 EMA of G: a copy of G (``g_ema``) whose parameters the step averages and
-which takes no gradient.  The optimizers are the same updates as the JAX
+which takes no gradient, and under ``train.ada_target != 0`` ADA's
+``ada_p`` and ``ada_rt``: 0-dim float32 tensors on the modules' device,
+which the step updates there.  The optimizers are the same updates as the JAX
 package's optax ones: ``torch.optim.Adam`` is optax's ``adam``, and
 ``torch.optim.RMSprop`` (eps outside the square root, no momentum) is
 optax's ``rmsprop`` with ``eps_in_sqrt=False``.
@@ -47,10 +49,15 @@ class TrainState:
     # EMA of G's parameters (None when train.ema == 0); its buffers are
     # G's, copied in before it generates (``sync_ema_buffers``)
     g_ema: Optional[nn.Module] = None
+    # ADA (None unless train.ada_target != 0): the augmentation probability
+    # p and the running estimate of r_t = E[sign(D(real))]
+    ada_p: Optional[torch.Tensor] = None
+    ada_rt: Optional[torch.Tensor] = None
 
     def state_dict(self) -> dict:
-        """Modules, optimizers, key and step, as ``torch.load`` takes back
-        with ``weights_only=True`` (the key as two ints)."""
+        """Modules, optimizers, key, step and ADA's state, as
+        ``torch.load`` takes back with ``weights_only=True`` (the key as two
+        ints)."""
         return {
             "step": int(self.step), "rng": [int(v) for v in self.rng],
             "g": self.g.state_dict(), "d": self.d.state_dict(),
@@ -59,6 +66,7 @@ class TrainState:
             # the EMA's parameters: its buffers are G's (sync_ema_buffers)
             "g_ema": (None if self.g_ema is None else {
                 k: p.detach() for k, p in self.g_ema.named_parameters()}),
+            "ada_p": self.ada_p, "ada_rt": self.ada_rt,
         }
 
     def load_state_dict(self, sd: dict) -> None:
@@ -68,6 +76,10 @@ class TrainState:
             raise ValueError(
                 "the checkpoint's EMA of G and this state's disagree "
                 "(train.ema must match the run that saved it)")
+        if (sd.get("ada_p") is None) != (self.ada_p is None):
+            raise ValueError(
+                "the checkpoint's ADA state and this state's disagree "
+                "(train.ada_target must be nonzero in both or in neither)")
         self.g.load_state_dict(sd["g"])
         self.d.load_state_dict(sd["d"])
         if self.g_ema is not None:
@@ -85,6 +97,10 @@ class TrainState:
             for st in opt.state.values():
                 if torch.is_tensor(st.get("step")):
                     st["step"] = st["step"].cpu()
+        if self.ada_p is not None:
+            dev = self.ada_p.device
+            self.ada_p = sd["ada_p"].to(dev, torch.float32)
+            self.ada_rt = sd["ada_rt"].to(dev, torch.float32)
         self.rng = np.array(sd["rng"], np.uint32)
         self.step = int(sd["step"])
 
@@ -185,15 +201,17 @@ def sync_ema_buffers(state: TrainState) -> None:
 def create_train_state(cfg: Config, g: nn.Module, d: nn.Module
                        ) -> TrainState:
     """Optimizers for (g, d), the EMA copy of g under ``train.ema > 0``,
-    and the run's key, as the JAX package derives it: the third of
+    ADA's p and r_t (zero) under ``train.ada_target != 0``, and the run's
+    key, as the JAX package derives it: the third of
     ``split(PRNGKey(train.seed), 3)``."""
-    if cfg.train.ada_target != 0:
-        raise NotImplementedError(
-            "train.ada_target is not ported yet (ROADMAP.md, Queue A: "
-            "'Augment')")
     opt_g, opt_d = make_optimizers(cfg, g, d)
     g_ema = (copy.deepcopy(g).requires_grad_(False) if cfg.train.ema > 0
              else None)
     rng = threefry.split(threefry.prng_key(cfg.train.seed), 3)[2]
+    ada_p = ada_rt = None
+    if cfg.train.ada_target != 0:
+        dev = next(g.parameters()).device
+        ada_p = torch.zeros((), dtype=torch.float32, device=dev)
+        ada_rt = torch.zeros((), dtype=torch.float32, device=dev)
     return TrainState(g=g, d=d, opt_g=opt_g, opt_d=opt_d, rng=rng, step=0,
-                      g_ema=g_ema)
+                      g_ema=g_ema, ada_p=ada_p, ada_rt=ada_rt)

@@ -63,10 +63,25 @@ impl: ``fuse_stats`` selects it.
 Conditional models (``cdcgan``): G takes (z, y) and D (x, y); the real
 labels are ``batch["label"]``, the fake ones a ``randint`` draw per update.
 
+``train.augment`` (``ops/augment.py``) augments every image D sees: in the
+D update the reals and the fakes with fresh draws (``ka_r, ka_f =
+split(k_aug_d)``), under ``wgan_gp`` the penalty's interpolates between
+the augmented pair, in the G update the fake differentiably (``k_aug_g``);
+under FusedProp the one fake forward's augmentation is shared by both
+pulls, and under ``grad_accum`` each microbatch takes its own key of
+``split(k_aug, accum)``.  ``train.ada_target`` (ADA, bce or hinge only)
+gates each op at probability ``state.ada_p``: after D's gradients the step
+folds ``rt_batch = mean(sign(D(real)))`` into ``state.ada_rt`` by
+``ada_rt_alpha(bsz)`` and moves ``p`` by ``sign(rt - target) * bsz /
+(ada_kimg * 1000)``, clipped to [0, 1], in float32 on the device (no
+sync); both updates of a step augment at the step's incoming ``p``.  The
+metrics then carry ``ada_p``, ``ada_rt`` and ``ada_rt_batch``.
+
 RNG: each step splits the state's threefry key into 8 as the JAX step does
-(``sample/threefry.py``), and draws the hflip bits, both latents, both
-fake label sets, the penalty's interpolation weights and the resident
-batch's indices from the same keys, so from one carried state the two
+(``sample/threefry.py``), 10 under a policy (``k_aug_d``, ``k_aug_g``
+last), and draws the hflip bits, both latents, both fake label sets, the
+penalty's interpolation weights, the resident batch's indices and the
+augmentation from the same keys, so from one carried state the two
 packages see the same noise and data.  Batch entries ``z_d`` / ``z_g``,
 ``y_fake_d`` / ``y_fake_g`` and ``gp_alpha`` replace the draws (the JAX
 step's parity hooks).  The LR under a schedule is set before each update
@@ -87,19 +102,41 @@ from tpugan_torch.losses.adversarial import (d_loss_fake_fn, d_loss_fn,
                                              d_loss_real_fn, g_loss_fn)
 from tpugan_torch.losses.gradient_penalty import gradient_penalty
 from tpugan_torch.ops import convs
+from tpugan_torch.ops.augment import apply_policy, parse_policy
 from tpugan_torch.sample import threefry
 from tpugan_torch.train.state import (TrainState, ema_update, make_schedules,
                                       set_lr)
 
 
-def check_supported(cfg: Config) -> None:
-    """Raise on an option of the JAX train step that the port does not
-    take, and on a combination the JAX step refuses."""
+# ADA's r_t is an EMA over an image budget: alpha = 1 - bsz / window gives
+# every batch size the same ~1280-image memory (0.9 at batch 128), and
+# clamps at 0.5 so one batch never overwrites the estimate.
+_ADA_RT_IMG_WINDOW = 1280.0
+
+
+def ada_rt_alpha(bsz: int) -> float:
+    """EMA blend factor for ADA's r_t estimate at this batch size."""
+    return max(0.5, 1.0 - bsz / _ADA_RT_IMG_WINDOW)
+
+
+def check_supported(cfg: Config) -> tuple[str, ...]:
+    """Raise on a combination the JAX train step refuses; returns the
+    augmentation policy (empty when ``train.augment`` is off)."""
     t, kind = cfg.train, cfg.loss.kind
-    if t.augment or t.ada_target != 0:
-        raise NotImplementedError(
-            "train.augment / train.ada_target is not ported yet (ROADMAP.md, "
-            "Queue A: 'Augment')")
+    policy = parse_policy(t.augment) if t.augment else ()
+    if t.ada_target != 0 and not policy:
+        raise ValueError(
+            "nonzero train.ada_target requires train.augment to name at "
+            "least one op (e.g. 'color,translation,cutout')")
+    if t.ada_target != 0 and kind not in ("bce", "hinge"):
+        # r_t = E[sign(D(real))] needs a zero-calibrated logit: it
+        # saturates under lsgan and has no calibrated zero under wgan
+        raise ValueError(
+            f"train.ada_target requires a zero-calibrated logit loss "
+            f"(bce or hinge), not {kind!r}: r_t = E[sign(D(real))] "
+            f"saturates under lsgan and is uncalibrated for wgan, so p "
+            f"would ramp to 1.0 regardless of overfitting; use fixed-p "
+            f"DiffAugment (train.augment without ada_target) instead")
     if t.fused_prop and (kind == "wgan_gp" or cfg.loss.n_critic != 1):
         raise ValueError(
             "train.fused_prop requires n_critic == 1 and no gradient "
@@ -121,6 +158,7 @@ def check_supported(cfg: Config) -> None:
             f"loss.real_label/fake_label have no effect under {kind!r} (no "
             f"label targets in that objective); label smoothing applies to "
             f"bce/lsgan only")
+    return policy
 
 
 def data_root(seed: int) -> np.ndarray:
@@ -193,7 +231,8 @@ def build_train_step(cfg: Config, g: nn.Module, d: nn.Module
     on the modules' device (a leading K axis when K > 1), or the resident
     ``{"dataset_images", "dataset_labels"}``; metrics are 0-dim tensors
     left on the device."""
-    check_supported(cfg)
+    policy = check_supported(cfg)
+    ada_on = cfg.train.ada_target != 0
     kind, nz, n_critic = cfg.loss.kind, cfg.model.nz, cfg.loss.n_critic
     hflip = cfg.data.hflip
     clip = cfg.loss.clip_value if kind == "wgan" else None
@@ -215,6 +254,34 @@ def build_train_step(cfg: Config, g: nn.Module, d: nn.Module
 
     def disc(x, y):
         return run(d, x, y) if conditional else run(d, x)
+
+    def aug(x, key, p):
+        return apply_policy(x, key, policy, 1.0 if p is None else p)
+
+    def aug_keys(key):
+        """Each microbatch's augmentation key."""
+        if not policy:
+            return [None] * accum
+        return threefry.split(key, accum) if accum > 1 else [key]
+
+    def rt_batch(real_logits):
+        # ADA's overfitting heuristic: E[sign(D(real))] drifts toward +1 as
+        # D memorizes the reals
+        return torch.sign(real_logits.detach().float()).mean()
+
+    def ada_update(state, metrics, bsz):
+        """Fold the batch's r_t into the state's and move p (module doc)."""
+        if not ada_on:
+            return metrics
+        rt_b = metrics.pop("rt_batch")
+        alpha = ada_rt_alpha(bsz)
+        rt = state.ada_rt * alpha + rt_b * (1.0 - alpha)
+        adj = torch.sign(rt - cfg.train.ada_target) * (
+            bsz / (cfg.train.ada_kimg * 1000.0))
+        state.ada_p = torch.clamp(state.ada_p + adj, 0.0, 1.0)
+        state.ada_rt = rt
+        return dict(metrics, ada_rt_batch=rt_b, ada_p=state.ada_p,
+                    ada_rt=rt)
 
     def d_update(state):
         set_lr(state.opt_d, sched_d)
@@ -267,8 +334,13 @@ def build_train_step(cfg: Config, g: nn.Module, d: nn.Module
         # the trainer's sample grids put G in eval mode between steps
         g.train()
         d.train()
-        (rng, k_zd, k_zg, k_gp, k_yd, k_yg, k_flip,
-         k_data) = threefry.split(state.rng, 8)
+        if policy:
+            (rng, k_zd, k_zg, k_gp, k_yd, k_yg, k_flip, k_data, k_aug_d,
+             k_aug_g) = threefry.split(state.rng, 10)
+        else:
+            (rng, k_zd, k_zg, k_gp, k_yd, k_yg, k_flip,
+             k_data) = threefry.split(state.rng, 8)
+            k_aug_d = k_aug_g = None
         x_real, y_real = _real_batch(state, batch, k_data, k_flip)
         dev = x_real.device
         bsz = x_real.shape[0]
@@ -290,26 +362,33 @@ def build_train_step(cfg: Config, g: nn.Module, d: nn.Module
         z_d = latents("z_d", k_zd)
         y_fake_d = fake_labels("y_fake_d", k_yd)
         if cfg.train.fused_prop:
-            metrics = fused(state, x_real, y_real, z_d, y_fake_d)
+            metrics = fused(state, x_real, y_real, z_d, y_fake_d, k_aug_d)
         else:
             metrics = alternating(state, batch, x_real, y_real, z_d,
-                                  y_fake_d, k_gp, lambda: (
-                                      latents("z_g", k_zg),
-                                      fake_labels("y_fake_g", k_yg)))
+                                  y_fake_d, k_gp, k_aug_d, k_aug_g,
+                                  lambda: (latents("z_g", k_zg),
+                                           fake_labels("y_fake_g", k_yg)))
         state.rng = rng
         state.step += 1
         return state, metrics
 
-    def fused(state, x_real, y_real, z, y_fake):
+    def fused(state, x_real, y_real, z, y_fake, k_aug):
         d_params = list(d.parameters())
         g_params = list(g.parameters())
+        ada_p = state.ada_p  # the step's incoming p
+        if policy:
+            # the one fake forward's augmentation draw is shared by the D
+            # and G pulls, inside the shared graph
+            ka_r, ka_f = threefry.split(k_aug, 2)
+            x_real = aug(x_real, ka_r, ada_p)
         fake = gen(z, y_fake)
         real_logits = disc(x_real, y_real)
         loss_r = d_loss_real_fn(kind, real_logits,
                                 real_label=cfg.loss.real_label)
         grads_real = torch.autograd.grad(loss_r, d_params)
         fake_in = fake.detach().requires_grad_()
-        fake_logits = disc(fake_in, y_fake)
+        fake_logits = disc(aug(fake_in, ka_f, ada_p) if policy else fake_in,
+                           y_fake)
         # the two cotangents of the one linearization of D on the fake
         leaf = fake_logits.detach().requires_grad_()
         loss_f = d_loss_fake_fn(kind, leaf, fake_label=cfg.loss.fake_label)
@@ -323,15 +402,18 @@ def build_train_step(cfg: Config, g: nn.Module, d: nn.Module
         _set_grads(g_params, torch.autograd.grad(fake, g_params,
                                                  grad_outputs=fake_cot))
         _set_grads(d_params, [a + b for a, b in zip(grads_real, grads_fake)])
-        d_update(state)
-        g_update(state)
-        return {
+        metrics = {
             "loss_d": (loss_r + loss_f).detach(),
             "d_real": real_logits.detach().float().mean(),
             "d_fake": fake_logits.detach().float().mean(),
             "gp": torch.zeros((), device=x_real.device),
-            "loss_g": loss_g.detach(),
         }
+        if ada_on:
+            metrics["rt_batch"] = rt_batch(real_logits)
+        metrics = ada_update(state, metrics, x_real.shape[0])
+        d_update(state)
+        g_update(state)
+        return dict(metrics, loss_g=loss_g.detach())
 
     def chunks(t):
         return [None] * accum if t is None else list(t.chunk(accum))
@@ -340,8 +422,9 @@ def build_train_step(cfg: Config, g: nn.Module, d: nn.Module
         return values[0] if accum == 1 else torch.stack(values).mean()
 
     def alternating(state, batch, x_real, y_real, z_d, y_fake_d, k_gp,
-                    g_inputs):
+                    k_aug_d, k_aug_g, g_inputs):
         dev = x_real.device
+        ada_p = state.ada_p  # both updates augment at the step's incoming p
         # --- D update: one microbatch after another, gradients summed ---
         gp_alpha = batch.get("gp_alpha")
         if gp_alpha is not None:
@@ -349,11 +432,17 @@ def build_train_step(cfg: Config, g: nn.Module, d: nn.Module
         k_gps = threefry.split(k_gp, accum) if accum > 1 else [k_gp]
         state.opt_d.zero_grad(set_to_none=True)
         ms = []
-        for xr, yr, z, yf, kg, ga in zip(
+        for xr, yr, z, yf, kg, ga, ka in zip(
                 chunks(x_real), chunks(y_real), chunks(z_d),
-                chunks(y_fake_d), k_gps, chunks(gp_alpha)):
+                chunks(y_fake_d), k_gps, chunks(gp_alpha),
+                aug_keys(k_aug_d)):
             with torch.no_grad():
                 fake = gen(z, yf)
+            if policy:
+                # fresh draws for the reals and the fakes; the penalty's
+                # interpolates are taken between the augmented pair
+                ka_r, ka_f = threefry.split(ka, 2)
+                xr, fake = aug(xr, ka_r, ada_p), aug(fake, ka_f, ada_p)
             real_logits = disc(xr, yr)
             fake_logits = disc(fake, yf)
             loss_d = d_loss_fn(kind, real_logits, fake_logits, **labels)
@@ -373,11 +462,14 @@ def build_train_step(cfg: Config, g: nn.Module, d: nn.Module
                 "d_fake": fake_logits.detach().float().mean(),
                 "gp": gp.detach(),
             })
+            if ada_on:
+                ms[-1]["rt_batch"] = rt_batch(real_logits)
         if accum > 1:
             for p in d.parameters():
                 p.grad.div_(accum)
+        metrics = ada_update(state, {k: mean([m[k] for m in ms])
+                                     for k in ms[0]}, x_real.shape[0])
         d_update(state)
-        metrics = {k: mean([m[k] for m in ms]) for k in ms[0]}
 
         # --- G update (every n_critic-th call) ---
         if n_critic == 1 or state.step % n_critic == n_critic - 1:
@@ -386,8 +478,12 @@ def build_train_step(cfg: Config, g: nn.Module, d: nn.Module
             d.requires_grad_(False)
             losses = []
             try:
-                for z, yf in zip(chunks(z_g), chunks(y_fake_g)):
-                    loss_g = g_loss_fn(kind, disc(gen(z, yf), yf))
+                for z, yf, ka in zip(chunks(z_g), chunks(y_fake_g),
+                                     aug_keys(k_aug_g)):
+                    fake = gen(z, yf)
+                    if policy:  # differentiable: G's gradient flows through
+                        fake = aug(fake, ka, ada_p)
+                    loss_g = g_loss_fn(kind, disc(fake, yf))
                     loss_g.backward()
                     losses.append(loss_g.detach())
             finally:

@@ -23,7 +23,16 @@ once, each step gathers its batch there), and:
   returns (a second signal force-quits); the handlers are installed on the
   main thread only, and the old ones are always put back;
 - under ``profile_steps`` N, traces calls 2 to N + 1 with ``torch.profiler``
-  into ``out_dir/prof``.
+  into ``out_dir/prof``;
+- every ``eval_every`` steps and at the last step, scores the sampling
+  generator with ``eval/evaluate.py`` (FID, KID, IS; logged under the
+  ``eval`` prefix, its time kept out of ``images_per_sec``) against the
+  run's dataset, passed whole so that a streaming folder's real features
+  are cached on its fingerprint; under ``keep_best`` a new best FID saves
+  a checkpoint into ``ckpt_dir/best`` (one kept) and the watermark
+  ``best/best_fid.json`` (written atomically).  A restored run keeps the
+  watermark; a fresh run clears a stale ``best/`` on its first
+  ``train()`` only.
 
 Every cadence advances in strides of K (a window fires once whatever K
 is).  The host synchronizes only at the log, grid and checkpoint points.
@@ -32,19 +41,22 @@ is).  The host synchronizes only at the log, grid and checkpoint points.
 conv + BN-statistics kernel (``ops/cuda_conv_stats.py``) in every DBlock
 with BatchNorm (and no spectral norm), "auto" does so on a CUDA device.
 
-A conditional model (``cdcgan``) trains on the dataset's labels, and its
-grids take the fixed labels ``Sampler.labels(64, seed)``; a dataset whose
-labels are all zero is refused.
+The dataset is ``data.dataset`` read from ``data.data_dir``
+(``data/datasets.py``: MNIST, CIFAR-10, CelebA in RAM or streaming, or
+synthetic).  A conditional model (``cdcgan``) trains on the dataset's
+labels, and its grids take the fixed labels ``Sampler.labels(64, seed)``;
+a dataset whose labels are all zero is refused.
 
-Not ported yet (ROADMAP.md, Queue A), and raising here: eval
-(``eval_every``, ``keep_best``) and meshes (``mesh_shape``,
-``spatial_shards``, ``fsdp_shards``).
+Not ported yet (ROADMAP.md, Queue A), and raising here: meshes
+(``mesh_shape``, ``spatial_shards``, ``fsdp_shards``).
 """
 
 from __future__ import annotations
 
 import itertools
+import json
 import os
+import shutil
 import signal
 import threading
 import time
@@ -53,10 +65,12 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from tpugan_torch.ckpt.checkpoint import CheckpointManager, load
+from tpugan_torch.ckpt.checkpoint import (CheckpointManager, atomic_write,
+                                          load)
 from tpugan_torch.configs import Config
 from tpugan_torch.data.datasets import load_dataset
 from tpugan_torch.data.pipeline import make_input_pipeline
+from tpugan_torch.eval.evaluate import evaluate
 from tpugan_torch.models.registry import build_models
 from tpugan_torch.sample.sampler import Sampler
 from tpugan_torch.train.state import (TrainState, create_train_state,
@@ -67,7 +81,6 @@ from tpugan_torch.utils.images import make_grid, save_png, to_uint8
 from tpugan_torch.utils.logging import MetricsLogger
 
 _NOT_PORTED = (
-    ("eval_every", "Eval"), ("keep_best", "Eval"),
     ("mesh_shape", "Parallel"), ("spatial_shards", "Parallel"),
     ("fsdp_shards", "Parallel"),
 )
@@ -143,16 +156,19 @@ class Trainer:
         self.state: TrainState = create_train_state(cfg, self.g, self.d)
         self.step_fn = build_train_step(cfg, self.g, self.d)
         self._data = data  # injected dataset (tests); else loaded lazily
-        self._restored = False
+        self._restored = False  # set by restore(): keeps the watermark
+        self._best_cleared = False  # the first fresh train() clears best/
+        self._best_fid = float("inf")
 
     def _dataset(self) -> dict:
         if self._data is None:
             c = self.cfg
             self._data = load_dataset(
-                c.data.dataset,
+                c.data.dataset, c.data.data_dir,
                 image_size=c.model.image_size, channels=c.model.channels,
                 synthetic_size=c.data.synthetic_size, seed=c.train.seed,
-                n_classes=c.model.n_classes)
+                n_classes=c.model.n_classes, streaming=c.data.streaming,
+                max_ram_mb=c.data.max_ram_mb)
         return self._data
 
     def _gen_module(self) -> torch.nn.Module:
@@ -165,6 +181,48 @@ class Trainer:
 
     def sampler(self) -> Sampler:
         return Sampler(self.cfg, self._gen_module())
+
+    def evaluate(self, seed: int = 0) -> Dict[str, float]:
+        """FID, KID and IS of the sampling generator (the EMA of G when it
+        is kept) against the run's dataset, on this trainer's device."""
+        return evaluate(self.cfg, self._gen_module(), seed=seed,
+                        real_images=self._dataset()["images"])
+
+    # -- keep_best watermark ------------------------------------------------
+    def _best_dir(self) -> str:
+        return os.path.join(self.cfg.train.ckpt_dir, "best")
+
+    def _load_best_meta(self) -> Optional[dict]:
+        """The banked keep_best watermark as {'fid', 'step'}, or None."""
+        try:
+            with open(os.path.join(self._best_dir(), "best_fid.json")) as f:
+                meta = json.load(f)
+            return {"fid": float(meta["fid"]), "step": int(meta["step"])}
+        except (FileNotFoundError, KeyError, ValueError, TypeError):
+            return None
+
+    def _save_best_watermark(self, step: int, fid: float) -> None:
+        def write(path):
+            with open(path, "w") as f:
+                json.dump({"fid": float(fid), "step": int(step)}, f)
+
+        os.makedirs(self._best_dir(), exist_ok=True)
+        atomic_write(os.path.join(self._best_dir(), "best_fid.json"), write)
+
+    def _arm_keep_best(self) -> None:
+        """A restored run keeps the banked watermark; a fresh run owns
+        ``best/`` and clears a previous run's on its first train() (later
+        calls share the in-memory watermark)."""
+        if self._restored:
+            meta = self._load_best_meta()
+            if meta is not None:
+                self._best_fid = min(self._best_fid, meta["fid"])
+        elif not self._best_cleared and os.path.isdir(self._best_dir()):
+            print(f"warning: clearing stale best slot {self._best_dir()} "
+                  f"from a previous run (a fresh run owns ckpt_dir/best; "
+                  f"resume the old run to keep it)")
+            shutil.rmtree(self._best_dir())
+        self._best_cleared = True
 
     # -- checkpoints --------------------------------------------------------
     def save_checkpoint(self, ckpt: CheckpointManager) -> None:
@@ -257,6 +315,10 @@ class Trainer:
         fixed_z = sampler.noise(64, t.seed)
         fixed_y = sampler.labels(64, t.seed)
 
+        if t.keep_best:
+            self._arm_keep_best()
+        best_ckpt = None
+
         last_metrics: Dict[str, float] = {}
         t0 = time.perf_counter()
         imgs_since = 0
@@ -312,6 +374,25 @@ class Trainer:
                                           f"samples_{step_no:07d}.png"),
                              make_grid(to_uint8(imgs), nrow=8))
                     t0 = time.perf_counter()  # grid D2H + PNG out of img/s
+                    imgs_since = 0
+                if t.eval_every and (step_no % t.eval_every < k or last):
+                    scores = evaluate(cfg, self._gen_module(), seed=t.seed,
+                                      real_images=data["images"])
+                    logger.log(step_no, {key: v for key, v in scores.items()
+                                         if isinstance(v, (int, float))},
+                               prefix="eval")
+                    if t.keep_best and scores["fid"] < self._best_fid:
+                        # the best-FID weights, beside the latest: 'best'
+                        # is the deploy point, the latest the resume point
+                        self._best_fid = scores["fid"]
+                        if best_ckpt is None:
+                            best_ckpt = CheckpointManager(self._best_dir(),
+                                                          max_to_keep=1)
+                        self.save_checkpoint(best_ckpt)
+                        self._save_best_watermark(step_no, scores["fid"])
+                        logger.log(step_no, {"best_fid": scores["fid"]},
+                                   prefix="eval")
+                    t0 = time.perf_counter()  # eval out of images_per_sec
                     imgs_since = 0
                 if t.ckpt_every and step_no % t.ckpt_every < k:
                     self.save_checkpoint(ckpt)
