@@ -107,13 +107,31 @@ Phases, each of which fails the run (no exception is caught):
 14b. the proxy extractor and InceptionV3 (``init_random`` weights, 64
    images at 64 px resized to 299) on the card against the CPU, and
    ``apply_policy`` on the card against the CPU (fp32 and bf16), with ms
-   per batch.
+   per batch;
+15. the CLI and the exported generator, full-width ``dcgan_celeba64``
+   through ``tpugan_torch.cli.main`` in process, under ``runs/smoke/cli``:
+   ``train`` (10 steps at batch 128, "pallas", fuse_stats on, 9 kernel-5
+   launches a step, a checkpoint at step 10), ``sample`` (256 images, one
+   v2 launch), ``export`` (a symbolic-batch artifact: ``generate(256)``
+   on the card is exactly 4 kernel-1 launches and the live "pallas"
+   module path bit for bit, within phase 3's bound of ``Sampler.sample``,
+   at three batch sizes; a ``--batch 64`` artifact pads a tail of 100;
+   moved to the CPU, the plain version within ``image_err``), ``serve
+   --ckpt`` on 127.0.0.1 (npy pixels equal ``artifact.sample``; SIGTERM
+   ends it), ``export-torch`` then ``import-torch`` (the state bit for
+   bit, moments warm), ``profile``; then ``sample(unroll=4)`` under "xla"
+   (one CUDA graph replay of 4 batches, bit for bit ``unroll=1``) and
+   under "pallas" (a warning, sequential v2), and the artifact's
+   ``generate(256)`` against the Sampler's, by CUDA events.  Phase 2
+   also times kernel 1's wrapper through the registered op against the
+   direct route (checks, then the launch).
 
 Phases 3-4, 5, 6, 7 (train, eval D), 8, 9 (train, eval D), 10, 11, 12
-(``grad_accum``, remat's plain twin, remat) and 14 (streaming, in RAM,
-resumed, timed, ``evaluate``) are the paths: each zeroes the launch
-counters just before it and reads them just after, and every kernel it
-names must have launched.  Each kernel's ``launches`` in the ``kernels``
+(``grad_accum``, remat's plain twin, remat), 14 (streaming, in RAM,
+resumed, timed, ``evaluate``) and 15 (each command, the artifact's
+``generate``, the fixed-batch tail, ``unroll`` under "pallas") are the
+paths: each zeroes the launch counters just before it and reads them
+just after, and every kernel it names must have launched.  Each kernel's ``launches`` in the ``kernels``
 line sums its paths' counts, and ``launches_by_path`` lists them.
 Checkpoints, the dataset files and the flagship's trace go to the
 git-ignored ``runs/smoke``.  The last lines are the ``kernels`` JSON, the
@@ -630,6 +648,220 @@ def make_generator(preset: str, dev, overrides=None):
     return cfg, g.eval()
 
 
+def cli_phase(dev, zero_counts, read_counts) -> dict:
+    """Phase 15, the CLI and the exported generator: ``dcgan_celeba64`` at
+    full width driven in process through ``tpugan_torch.cli.main``, each
+    command a path counted from zero.  Returns the phase's numbers."""
+    import contextlib
+    import socket
+    import statistics
+    import warnings
+
+    import numpy as np
+    import torch
+
+    from tpugan_torch import cli
+    from tpugan_torch.export import load_generator
+    from tpugan_torch.ops import convs
+    from tpugan_torch.sample.sampler import Sampler, seeded_noise
+
+    out_dir = RUNS / "cli"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    sets = ["data.dataset=synthetic",
+            f"data.synthetic_size={10 * TRAIN_BATCH}",
+            f"data.batch_size={TRAIN_BATCH}", "train.kernels=pallas",
+            "train.fuse_stats=on", "train.total_steps=10",
+            "train.ckpt_every=10", "train.log_every=10",
+            "train.sample_every=10"]
+    flags = [a for x in sets for a in ("--set", x)]
+    ckpt = str(out_dir / "run" / "ckpt")
+    found = {}
+
+    def run(*argv) -> str:
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            cli.main(["--device", dev.type, *argv])
+        text = buf.getvalue()
+        log(f"[cli] {' '.join(argv[:1])}: {text.strip().splitlines()[-1]}")
+        return text
+
+    # train: 10 steps, kernel 5 in the three BN blocks of each D forward
+    zero_counts()
+    run("train", "dcgan_celeba64", "--out", str(out_dir / "run"), *flags)
+    counts = read_counts("cli train dcgan_celeba64")
+    require(counts["conv_stats"] == 9 * 10,
+            f"cli train: {counts['conv_stats']} kernel-5 launches, not 90")
+    cfg, g, step = cli._load_generator_from_ckpt(ckpt, dev)
+    g.eval()
+    require(step == 10, f"checkpoint at step {step}, not 10")
+    require(cfg.model.nz == 100 and cfg.model.ngf == 64
+            and cfg.data.batch_size == TRAIN_BATCH,
+            "cli train: not full-width dcgan_celeba64")
+
+    # sample: one v2 launch a batch
+    zero_counts()
+    run("sample", "--ckpt", ckpt, "--n", str(BATCH), "--batch-size",
+        str(BATCH), "--out", str(out_dir / "samples.png"))
+    counts = read_counts("cli sample")
+    require(counts["v2"] == 1, f"cli sample: {counts['v2']} v2 launches")
+
+    # export: a symbolic-batch artifact under "pallas", and a fixed batch
+    art_path, art64_path = out_dir / "g.tpugan", out_dir / "g64.tpugan"
+    run("export", "--ckpt", ckpt, "--out", str(art_path))
+    run("export", "--ckpt", ckpt, "--out", str(art64_path), "--batch",
+        str(BATCH // 4))
+    art = load_generator(str(art_path), device=dev)
+    zn = seeded_noise(cfg.model.nz, BATCH, seed=0)
+    zero_counts()
+    img = art.generate(zn)
+    counts = read_counts("artifact generate")
+    require(counts["convt_affine_act"] == 4 and counts["v2"] == 0,
+            f"artifact generate({BATCH}): launches {counts}")
+    require(img.shape == (BATCH, 64, 64, 3) and bool(np.isfinite(img).all()),
+            f"artifact image {img.shape}")
+    with torch.no_grad(), convs.using_impl("pallas"):
+        live = g(torch.from_numpy(zn).to(dev)).float().cpu().numpy()
+    require(np.array_equal(img, live),
+            f"artifact vs live module path under pallas: max "
+            f"{np.abs(img - live).max()}")
+    # against v2, phase 3's bound for the module path: the per-layer path
+    # rounds each activation to bf16 where v2 keeps fp32
+    sampler = Sampler(cfg, g)
+    d = np.abs(art.sample(BATCH, seed=0) - sampler.sample(BATCH, seed=0))
+    require(d.max() <= 5e-2 and d.mean() <= 2e-3,
+            f"artifact vs Sampler (v2): max {d.max()}, mean {d.mean()}")
+    found["artifact_vs_v2"] = {"max": float(d.max()), "mean": float(d.mean())}
+    for n in (1, 37, BATCH):
+        out = art.generate(zn[:n])
+        require(out.shape[0] == n and bool(np.isfinite(out).all()),
+                f"artifact at batch {n}")
+    art64 = load_generator(str(art64_path), device=dev)
+    tail = 100
+    zero_counts()
+    padded = art64.generate(zn[:tail])
+    counts = read_counts("fixed-batch artifact, a tail")
+    chunks = -(-tail // (BATCH // 4))
+    require(counts["convt_affine_act"] == 4 * chunks,
+            f"fixed-batch artifact: launches {counts}, {chunks} chunks")
+    require(image_err(torch.from_numpy(padded),
+                      torch.from_numpy(img[:tail]))[1],
+            "fixed batch with a padded tail differs")
+    n_cpu = 16
+    on_cpu = load_generator(str(art_path), device="cpu").generate(zn[:n_cpu])
+    err, ok = image_err(torch.from_numpy(img[:n_cpu]),
+                        torch.from_numpy(on_cpu))
+    require(ok, f"artifact on the card vs on the CPU: max err {err}")
+    found["card_vs_cpu_max_err"] = err
+
+    # serve --ckpt on 127.0.0.1: serve_forever on this (main) thread, a
+    # client thread posting, then SIGTERM, the server's own shutdown path
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    url = f"http://127.0.0.1:{port}"
+    served = {}
+
+    def client():
+        try:
+            for _ in range(600):
+                try:
+                    with urllib.request.urlopen(url + "/healthz",
+                                                timeout=5) as r:
+                        served["health"] = json.loads(r.read())
+                    break
+                except OSError:
+                    time.sleep(0.1)
+            req = urllib.request.Request(
+                url + "/sample", method="POST", data=json.dumps(
+                    {"n": 16, "seed": 4, "format": "npy"}).encode())
+            with urllib.request.urlopen(req, timeout=120) as r:
+                served["npy"] = np.load(io.BytesIO(r.read()))
+        finally:
+            os.kill(os.getpid(), signal.SIGTERM)
+
+    zero_counts()
+    th = threading.Thread(target=client, daemon=True)
+    th.start()
+    run("serve", "--ckpt", ckpt, "--host", "127.0.0.1", "--port", str(port))
+    th.join(timeout=60)
+    require(not th.is_alive() and "npy" in served, "serve --ckpt: no answer")
+    counts = read_counts("cli serve --ckpt")
+    require(counts["convt_affine_act"] == 4 and counts["v2"] == 0,
+            f"serve --ckpt launches {counts}")
+    require(np.array_equal(served["npy"], art.sample(16, seed=4)),
+            "served npy pixels differ from artifact.sample")
+
+    # export-torch then import-torch: the state bit for bit, moments warm
+    pth = str(out_dir / "model.pth")
+    zero_counts()
+    run("export-torch", "--ckpt", ckpt, "--out", pth)
+    text = run("import-torch", "dcgan_celeba64", "--ckpt", pth, "--out",
+               str(out_dir / "back"), *flags)
+    require("restored warm for G+D" in text, "import-torch: moments cold")
+    _, a = cli._load_state(ckpt, dev)
+    _, b = cli._load_state(str(out_dir / "back"), dev)
+    b.rng = a.rng  # the key is not part of a .pth
+    require(states_equal(a, b), f".pth round trip differs by "
+            f"{max_state_diff(a, b)}")
+    require(any(float(st["exp_avg"].abs().max()) > 0
+                for st in a.opt_d.state.values()), "moments all zero")
+    read_counts("cli export-torch + import-torch")
+    del a, b
+
+    # profile: counted FLOPs and bytes, measured ms per step
+    zero_counts()
+    prof = json.loads(run("profile", "dcgan_celeba64", "--iters", "5",
+                          *flags).strip().splitlines()[-1])
+    counts = read_counts("cli profile")
+    require(prof["ms_per_step"] > 0 and prof["images_per_sec"] > 0
+            and prof["flops_per_step"] > 0, f"profile: {prof}")
+    require(counts["conv_stats"] == 9 * (5 + 2),
+            f"profile: {counts['conv_stats']} kernel-5 launches, not 63")
+    found["profile"] = prof
+
+    # unroll: "xla" as one CUDA graph replay of 4 batches, bit for bit
+    xs = Sampler(cfg.override({"train.kernels": "xla"}), g)
+    n_u = 4 * BATCH
+    one = xs.sample(n_u, seed=2, batch_size=BATCH)
+    four = xs.sample(n_u, seed=2, batch_size=BATCH, unroll=4)
+    require(np.array_equal(one, four), f"unroll=4 vs unroll=1: max "
+            f"{np.abs(one - four).max()}")
+    # in alternating rounds, the medians: the host's noise draw and the
+    # copy of the images back to the host are most of a call, and vary by
+    # tens of ms from round to round on a shared host
+    rounds = {1: [], 4: []}
+    for _ in range(5):
+        for u in rounds:
+            rounds[u].append(time_ms(lambda: xs.sample(
+                n_u, seed=2, batch_size=BATCH, unroll=u), 2))
+    found["unroll1_ms"] = statistics.median(rounds[1])
+    found["unroll4_ms"] = statistics.median(rounds[4])
+    found["copy_back_ms"] = time_ms(lambda: torch.empty(
+        (n_u, 64, 64, 3), device=dev).cpu(), 3)
+    zero_counts()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        seq = sampler.sample(n_u, seed=2, batch_size=BATCH, unroll=4)
+    counts = read_counts("sample unroll=4 under pallas")
+    require(any("unroll" in str(w.message) for w in caught),
+            "unroll under pallas: no warning")
+    require(counts["v2"] == 4, f"unroll under pallas: {counts}")
+    require(np.array_equal(seq, sampler.sample(n_u, seed=2,
+                                               batch_size=BATCH)),
+            "unroll under pallas differs from sequential")
+
+    # the artifact's per-layer kernel-1 path against the Sampler's v2
+    found["artifact_generate_ms"] = time_ms(lambda: art.generate(zn), 5)
+    found["sampler_generate_ms"] = time_ms(lambda: sampler.generate(zn), 5)
+    found["artifact_sample_ms"] = time_ms(
+        lambda: art.sample(BATCH, seed=0), 5)
+    found["sampler_sample_ms"] = time_ms(
+        lambda: sampler.sample(BATCH, seed=0), 5)
+    log(f"[cli] {json.dumps(found)}")
+    return found
+
+
 def measure_v2(tree: str) -> int:
     """``--measure-v2 TREE``: megakernel v2 of the port in checkout TREE on
     phase 2's main-path input (``dcgan_celeba64``, batch 256, the seeded
@@ -815,6 +1047,11 @@ def main() -> int:
                              x, wb, a, b, act=act, out_dtype=bf), 5),
                      bound_ms=bms,
                      bound_by=by, flops=flops, bytes=byt, max_abs_err=err)
+            # the wrapper's host time through the registered op against
+            # the route without the dispatcher (checks, then the launch)
+            c["direct_ms"] = time_ms(lambda: (
+                cuda_convt._check(x, wb, a, b, act),
+                cuda_convt._launch(x, wb, a, b, act, 0.2, bf)), 20)
             cases.append(c)
             log(f"[kernel] convt_affine_act {json.dumps(c)}")
             log(f"[kernel] convt_affine_act {c['shape']}: {rate(c)}")
@@ -840,6 +1077,10 @@ def main() -> int:
                     else "relu", out_dtype=bf)
             return y
 
+        host = {k: [round(c[k] - c["device_ms"], 4) for c in cases]
+                for k in ("ms", "direct_ms")}
+        log(f"[kernel] convt_affine_act host ms a layer (ms - device_ms): "
+            f"through the op {host['ms']}, direct {host['direct_ms']}")
         chained = graph_ms(chain, 10)
         log(f"[kernel] convt_affine_act: the {len(blocks)} layers chained "
             f"{chained:.4f} ms on the device; replayed one by one "
@@ -2129,7 +2370,23 @@ def main() -> int:
         f"{TRAIN_BATCH} (host draws included); card {card()}")
     del ram_data
 
-    # -- 15. report ---------------------------------------------------------
+    # -- 15. the CLI and the exported generator ----------------------------
+    t0 = time.time()
+    cli_found = cli_phase(dev, zero_counts, read_counts)
+    prof = cli_found["profile"]
+    ms = {k: round(v, 4) for k, v in cli_found.items() if k.endswith("_ms")}
+    log(f"[cli] phase 15 in {time.time() - t0:.1f}s; artifact generate("
+        f"{BATCH}) {ms['artifact_generate_ms']} ms (4 kernel-1 launches) "
+        f"against Sampler.generate {ms['sampler_generate_ms']} ms (one v2 "
+        f"launch); artifact sample {ms['artifact_sample_ms']} ms, "
+        f"Sampler.sample {ms['sampler_sample_ms']} ms; unroll=4 "
+        f"{ms['unroll4_ms']} ms against unroll=1 {ms['unroll1_ms']} ms for "
+        f"{4 * BATCH} images (xla; medians of 5 rounds), their copy back "
+        f"alone {ms['copy_back_ms']} ms; profile {prof['ms_per_step']} ms/step, "
+        f"{prof['images_per_sec']} images/s, "
+        f"{prof['flops_per_step']:.4e} FLOPs/step; card {card()}")
+
+    # -- 16. report ---------------------------------------------------------
     for key, rep_k in report.items():
         by_path = {p: c[key] for p, c in path_counts.items() if c[key]}
         rep_k["launches"] = sum(by_path.values())

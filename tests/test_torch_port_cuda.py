@@ -669,3 +669,90 @@ def test_inception_on_cuda_matches_cpu(cuda):
     fc, _ = features.inception_extractor(params, device=cuda)(x)
     fr, _ = features.inception_extractor(params, device="cpu")(x)
     assert np.abs(fc - fr).max() <= 1e-4 * np.abs(fr).max()
+
+
+def test_convt_op_launches_the_kernel_and_matches_plain(cuda):
+    """The registered op itself (as an exported program calls it): one
+    launch a call on a CUDA tensor, the plain version on a CPU one."""
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    x = _rand((2, 8, 8, 128), gen, cuda).to(BF)
+    wt = _rand((4, 4, 128, 64), gen, cuda, 0.05).to(BF)
+    a, b = _rand((64,), gen, cuda), _rand((64,), gen, cuda)
+    before = cuda_convt.launches
+    got = torch.ops.tpugan_torch.convt_affine_act(x, wt, a, b, "relu", 0.2,
+                                                  BF)
+    assert cuda_convt.launches == before + 1
+    ref = torch.ops.tpugan_torch.convt_affine_act(
+        x.cpu(), wt.cpu(), a.cpu(), b.cpu(), "relu", 0.2, BF)
+    assert cuda_convt.launches == before + 1
+    assert_bf16_close(got.cpu(), ref)
+
+
+def _trained_bn_generator(cuda, preset, overrides, seed, batch):
+    """(cfg, eval-mode generator, z, y or None): random weights, BN
+    statistics from one train-mode forward."""
+    cfg = get_preset(preset).override(overrides)
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    g = build_generator(cfg.model, device=cuda, generator=gen)
+    cond = cfg.model.arch == "cdcgan"
+    z = _rand((batch, cfg.model.nz), gen, cuda)
+    y = (torch.arange(batch, device=cuda) % cfg.model.n_classes
+         if cond else None)
+    with torch.no_grad():
+        g.train()
+        g(z, y) if cond else g(z)
+    return cfg, g.eval(), z, y
+
+
+@pytest.mark.parametrize("preset,overrides", [
+    ("dcgan_celeba64", {"model.ngf": 64}),
+    ("cdcgan_celeba64", {"model.ngf": 16, "model.nz": 20,
+                         "model.embed_dim": 6})])
+def test_artifact_runs_kernel_1_on_the_card(cuda, preset, overrides):
+    """An artifact exported under "pallas" and loaded on the card launches
+    kernel 1 once a GBlock, gives the live module path's bits, runs at
+    other batch sizes, and moved to the CPU gives the kernel's plain
+    version within the image limit."""
+    from tpugan_torch.export import export_generator, load_generator
+    from tpugan_torch.ops import convs
+
+    cfg, g, z, y = _trained_bn_generator(
+        cuda, preset, {**overrides, "train.kernels": "pallas"}, 4, 5)
+    blob = export_generator(cfg, g)
+    art = load_generator(blob, device="cuda")
+    zn = z.cpu().numpy()
+    yn = None if y is None else y.cpu().numpy()
+    before = cuda_convt.launches
+    got = art.generate(zn, yn)
+    assert cuda_convt.launches == before + 4
+    with torch.no_grad(), convs.using_impl("pallas"):
+        live = (g(z) if y is None else g(z, y)).float().cpu().numpy()
+    np.testing.assert_array_equal(got, live)
+    on_cpu = load_generator(blob, device="cpu").generate(zn, yn)
+    assert_image_close(torch.from_numpy(got), torch.from_numpy(on_cpu))
+    for n in (1, 3):
+        assert art.generate(zn[:n], None if yn is None
+                            else yn[:n]).shape[0] == n
+
+
+@pytest.mark.parametrize("preset,overrides", [
+    ("dcgan_celeba64", {"model.ngf": 32}),
+    ("cdcgan_celeba64", {"model.ngf": 16, "model.nz": 20,
+                         "model.embed_dim": 6})])
+def test_unroll_replays_unroll_1_bits_on_the_card(cuda, preset, overrides):
+    """Under "xla" on the card ``unroll`` is a CUDA graph replay: the
+    pixels of ``unroll=1`` bit for bit, the tail included."""
+    from tpugan_torch.sample.sampler import Sampler
+
+    cfg, g, _, _ = _trained_bn_generator(cuda, preset, overrides, 5, 8)
+    s = Sampler(cfg, g)
+    want = s.sample(19, seed=3, batch_size=4)
+    for _ in range(2):  # the capture, then a replay of the cached graph
+        got = s.sample(19, seed=3, batch_size=4, unroll=2)
+        np.testing.assert_array_equal(got, want)
+    # new weights in new storage: the cached graph is not replayed
+    g.load_state_dict({k: v * 0.5 if v.is_floating_point() else v
+                       for k, v in g.state_dict().items()}, assign=True)
+    want = s.sample(19, seed=3, batch_size=4)
+    got = s.sample(19, seed=3, batch_size=4, unroll=2)
+    np.testing.assert_array_equal(got, want)

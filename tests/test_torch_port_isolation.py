@@ -37,7 +37,9 @@ def test_package_imports_without_jax():
             "tpugan_torch.ops.cuda_gen2, tpugan_torch.ckpt.from_jax, "
             "tpugan_torch.models.registry, tpugan_torch.train.trainer, "
             "tpugan_torch.ops.cuda_conv_stats, "
-            "tpugan_torch.losses.adversarial; "
+            "tpugan_torch.losses.adversarial, tpugan_torch.cli, "
+            "tpugan_torch.export, tpugan_torch.ckpt.torch_import, "
+            "tpugan_torch.ckpt.torch_export, tpugan_torch.utils.profiling; "
             "assert 'jax' not in [m.split('.')[0] for m in sys.modules "
             "if sys.modules[m] is not None]")
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,

@@ -178,3 +178,29 @@ def test_conditional_serving_validates_labels():
     with pytest.raises(ValueError):
         Sampler(pcfg.override({"train.kernels": "cudnn"}), tg)
     assert torch.is_grad_enabled()
+
+
+@pytest.mark.parametrize("preset,n,bs,u", [
+    ("dcgan_cifar10", 12, 3, 2),     # two calls of 2 batches
+    ("dcgan_cifar10", 11, 3, 2),     # one call of 2, then a batch and a tail
+    ("cdcgan_celeba64", 8, 2, 4),    # conditional, one call of 4
+])
+def test_unroll_gives_unroll_1_pixels(preset, n, bs, u):
+    """``sample(unroll=u)`` (the plain loop on the CPU) equals
+    ``unroll=1`` bit for bit, seeded labels and a tail included."""
+    _, _, _, _, pcfg, tg = twin_generators(
+        preset, {"model.ngf": 4, "model.nz": 8, "model.embed_dim": 4})
+    s = Sampler(pcfg, tg)
+    want = s.sample(n, seed=4, batch_size=bs)
+    got = s.sample(n, seed=4, batch_size=bs, unroll=u)
+    assert got.shape == want.shape == (n,) + want.shape[1:]
+    np.testing.assert_array_equal(got, want)
+
+
+def test_unroll_under_pallas_warns_and_runs_sequentially():
+    _, _, _, _, pcfg, tg = twin_generators("dcgan_cifar10",
+                                           {"model.ngf": 4, "model.nz": 8})
+    s = Sampler(pcfg.override({"train.kernels": "pallas"}), tg)
+    with pytest.warns(UserWarning, match="unroll"):
+        got = s.sample(7, seed=1, batch_size=2, unroll=4)
+    np.testing.assert_array_equal(got, s.sample(7, seed=1, batch_size=2))

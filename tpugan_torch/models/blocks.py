@@ -57,9 +57,10 @@ class GBlock(nn.Module):
             a, b = bn_affine(self.bn.scale, self.bn.bias, self.bn.mean,
                              self.bn.var, self.bn.eps)
         else:
-            a = torch.ones(conv.cout, device=x.device)
-            b = (conv.b.float() if conv.b is not None
-                 else torch.zeros(conv.cout, device=x.device))
+            # from the block's own weight, not a device literal: an
+            # exported program then runs on whatever device it is moved to
+            a = torch.ones_like(conv.w[0, 0, 0])
+            b = conv.b.float() if conv.b is not None else torch.zeros_like(a)
         return cuda_convt.convt_affine_act(
             x.to(conv.dtype), conv.w.to(conv.dtype), a, b,
             act="tanh" if self.final else "relu", out_dtype=conv.dtype)
@@ -130,7 +131,7 @@ class DBlock(nn.Module):
             a, b = bn_affine(self.bn.scale, self.bn.bias, self.bn.mean,
                              self.bn.var, self.bn.eps)
         else:  # no BN: the conv keeps its bias
-            a, b = torch.ones(conv.cout, device=x.device), conv.b.float()
+            a, b = torch.ones_like(conv.w[0, 0, 0]), conv.b.float()
         return cuda_conv.conv_affine_act(
             x.to(conv.dtype), conv.weight().to(conv.dtype), a, b,
             act="leaky_relu", leak=self.act.slope, out_dtype=conv.dtype)

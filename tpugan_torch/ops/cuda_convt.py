@@ -11,10 +11,19 @@ the 4x4 taps (``kernel_common.TAPS``):
 so a layer is 16 shifted (N*H*W, Cin) @ (Cin, Cout) matmuls with fp32
 accumulation and no multiplies on dilation zeros.
 
-``convt_affine_act`` takes a CPU tensor to the plain version below and a
-CUDA tensor to the kernel; it raises on a shape or dtype the kernel does not
-take, and when autograd would need a gradient through it (the kernel is
-forward-only, as the Pallas kernel has no VJP).
+``convt_affine_act`` is the registered torch op
+``tpugan_torch::convt_affine_act`` (``torch.library.custom_op``), so a
+traced program (``torch.export`` of an eval-mode generator under "pallas",
+``export/exporter.py``) holds one node of it and runs the kernel when it
+runs on the card.  The op's implementation takes a CPU tensor to the plain
+version below and a CUDA tensor to the kernel, and raises on any other
+device and on a shape or dtype the kernel does not take; its fake
+(``register_fake``) gives the output's shape and dtype alone, for any
+symbolic batch.  The Python front refuses a call that autograd would need a
+gradient through (the kernel is forward-only, as the Pallas kernel has no
+VJP): inside the op autograd is already off, so the test lives in front of
+it.  Importing this module registers the op, which loading an exported
+program needs.
 
 The kernel reads x, and w where Cout > 8, by TMA, which needs rows of a
 multiple of 16 bytes and 16-byte-aligned bases.  ``kernel_operands`` states
@@ -37,7 +46,8 @@ from tpugan_torch.ops.kernel_common import (ACT_CODES, TAPS, aligned,
                                             pad_dim, round_up)
 from tpugan_torch.ops.kernel_common import act as _act
 
-# Kernel launches made by ``convt_affine_act`` (CUDA tensors only).
+# Kernel launches made by the op ``convt_affine_act`` (CUDA tensors only),
+# eager or from an exported program.
 launches = 0
 
 # Cout <= NARROW_COUT with Cin <= NARROW_MAX_CIN runs the four-phase kernel
@@ -62,10 +72,6 @@ def _check(x, w, scale, shift, act):
             raise ValueError(f"{name} must be ({cout},), got {tuple(t.shape)}")
     if act not in ACT_CODES:
         raise ValueError(f"unknown act {act!r}")
-    if torch.is_grad_enabled() and any(
-            t.requires_grad for t in (x, w, scale, shift)):
-        raise RuntimeError("convt_affine_act is forward-only: it has no "
-                           "backward (run it under torch.no_grad())")
 
 
 def convt_affine_act_plain(x, w, scale, shift, *, act: str = "relu",
@@ -147,17 +153,11 @@ def _launch(x, w, scale, shift, act, leak, out_dtype):
     return y
 
 
-def convt_affine_act(x, w, scale, shift, *, act: str = "relu",
-                     leak: float = 0.2, out_dtype=None):
-    """Fused y = act(convT_{4,2,1}(x, w) * scale + shift).
-
-    x: (N, H, W, Cin); w: (4, 4, Cin, Cout) HWIO deconv weights (unflipped);
-    scale/shift: (Cout,) fp32 per-channel affine (from ``bn_affine``, or
-    (1, bias) for a plain bias).  Returns (N, 2H, 2W, Cout) in ``out_dtype``
-    (default: x's dtype).  On CUDA, x and w must be bf16.
-    """
+@torch.library.custom_op("tpugan_torch::convt_affine_act", mutates_args=())
+def _op(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
+        shift: torch.Tensor, act: str, leak: float,
+        out_dtype: torch.dtype) -> torch.Tensor:
     _check(x, w, scale, shift, act)
-    out_dtype = out_dtype or x.dtype
     if x.device.type == "cpu":
         return convt_affine_act_plain(x, w, scale, shift, act=act, leak=leak,
                                       out_dtype=out_dtype)
@@ -166,11 +166,31 @@ def convt_affine_act(x, w, scale, shift, *, act: str = "relu",
     return _launch(x, w, scale, shift, act, leak, out_dtype)
 
 
+@_op.register_fake
+def _op_fake(x, w, scale, shift, act, leak, out_dtype):
+    n, h, wd, _ = x.shape
+    return x.new_empty((n, 2 * h, 2 * wd, w.shape[3]), dtype=out_dtype)
+
+
+def convt_affine_act(x, w, scale, shift, *, act: str = "relu",
+                     leak: float = 0.2, out_dtype=None):
+    """Fused y = act(convT_{4,2,1}(x, w) * scale + shift), through the op.
+
+    x: (N, H, W, Cin); w: (4, 4, Cin, Cout) HWIO deconv weights (unflipped);
+    scale/shift: (Cout,) fp32 per-channel affine (from ``bn_affine``, or
+    (1, bias) for a plain bias).  Returns (N, 2H, 2W, Cout) in ``out_dtype``
+    (default: x's dtype).  On CUDA, x and w must be bf16.
+    """
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, w, scale, shift)):
+        raise RuntimeError("convt_affine_act is forward-only: it has no "
+                           "backward (run it under torch.no_grad())")
+    return _op(x, w, scale, shift, act, float(leak), out_dtype or x.dtype)
+
+
 def conv_transpose2d(x, w):
     """The bare transpose conv (no epilogue), fp32 out: the ``ops.convs``
     "pallas" hook."""
-    cout = w.shape[-1]
-    one = torch.ones((cout,), dtype=torch.float32, device=x.device)
-    zero = torch.zeros((cout,), dtype=torch.float32, device=x.device)
-    return convt_affine_act(x, w, one, zero, act="none",
+    one = torch.ones_like(w[0, 0, 0], dtype=torch.float32)
+    return convt_affine_act(x, w, one, torch.zeros_like(one), act="none",
                             out_dtype=torch.float32)

@@ -11,11 +11,25 @@ Generation runs in eval mode (BatchNorm running stats).  With
 ``train.kernels == "pallas"`` it is one launch of the phase-separated
 megakernel (``ops/cuda_gen2.py``); with "xla" it is the module's own forward
 on PyTorch ops.  There is no fallback from one to the other.
+
+``sample(..., unroll=u)`` runs u consecutive batches a call.  Under "xla" on
+the card that call is one replay of a CUDA graph of the u forwards (the
+port of the JAX package's unrolled jitted program: it divides the host's
+launch work by u), captured once per (batch size, u) after an eager warm-up
+so that cuDNN picks the algorithms it picks eagerly; on the CPU it is the
+plain loop.  The pixels are those of ``unroll=1``.  A graph replays the
+addresses of the weights it captured: the Sampler keeps its graphs while
+the generator's parameters and buffers stay in the same storage (an
+in-place ``load_state_dict`` keeps it), drops them all when any moves
+(``g.to``, ``load_state_dict(..., assign=True)``, a reassigned
+parameter), and ``clear_graphs()`` frees their memory pools.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import itertools
+import warnings
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -63,11 +77,19 @@ class Sampler:
         self.channels = cfg.model.channels
         self.g = g
         self.device = next(g.parameters()).device
+        # (batch size, unroll) -> the captured unrolled forward ("xla", card),
+        # valid for the weight storage in _graphs_weights
+        self._graphs: Dict[Tuple[int, int], _UnrolledGraph] = {}
+        self._graphs_weights: Tuple[int, ...] = ()
 
-    @torch.no_grad()
-    def generate(self, z, y=None) -> np.ndarray:
-        """Images (n, S, S, C) float32 in [-1, 1] from explicit latents
-        (and labels for a conditional model)."""
+    def clear_graphs(self) -> None:
+        """Drop the captured ``unroll`` graphs and their memory pools."""
+        self._graphs.clear()
+        self._graphs_weights = ()
+
+    def _inputs(self, z, y):
+        """(z, y) as tensors on the generator's device; checks the labels
+        against the model."""
         z = torch.as_tensor(np.array(z, np.float32), device=self.device)
         if self.conditional:
             if y is None:
@@ -75,12 +97,42 @@ class Sampler:
             y = torch.as_tensor(np.asarray(y, np.int64), device=self.device)
         elif y is not None:
             raise ValueError("unconditional model: labels not accepted")
-        self.g.eval()
+        return z, y
+
+    def _forward(self, z, y):
+        """The eval-mode image, float32, on the device."""
         if self.kernels == "pallas":
-            img = cuda_gen2.generator_forward(self.g, z, y)
-        else:
-            img = (self.g(z, y) if self.conditional else self.g(z)).float()
-        return img.cpu().numpy()
+            return cuda_gen2.generator_forward(self.g, z, y)
+        return (self.g(z, y) if self.conditional else self.g(z)).float()
+
+    @torch.no_grad()
+    def generate(self, z, y=None) -> np.ndarray:
+        """Images (n, S, S, C) float32 in [-1, 1] from explicit latents
+        (and labels for a conditional model)."""
+        z, y = self._inputs(z, y)
+        self.g.eval()
+        return self._forward(z, y).cpu().numpy()
+
+    @torch.no_grad()
+    def _generate_unrolled(self, z, y, bs: int, u: int) -> np.ndarray:
+        """u consecutive batches of ``bs`` (z holds u * bs latents): one
+        CUDA graph replay on the card, the plain loop on the CPU."""
+        if self.device.type != "cuda":
+            return np.concatenate([
+                self.generate(z[i * bs:(i + 1) * bs],
+                              None if y is None else y[i * bs:(i + 1) * bs])
+                for i in range(u)], axis=0)
+        z, y = self._inputs(z, y)
+        self.g.eval()
+        weights = tuple(t.data_ptr() for t in itertools.chain(
+            self.g.parameters(), self.g.buffers()))
+        if weights != self._graphs_weights:
+            self.clear_graphs()
+            self._graphs_weights = weights
+        graph = self._graphs.get((bs, u))
+        if graph is None:
+            graph = self._graphs[(bs, u)] = _UnrolledGraph(self, bs, u)
+        return graph.run(z, y)
 
     def noise(self, n: int, seed: int, offset: int = 0) -> np.ndarray:
         return seeded_noise(self.nz, n, seed, offset)
@@ -92,22 +144,37 @@ class Sampler:
         return seeded_labels(self.n_classes, n, seed, offset)
 
     def sample(self, n: int, seed: int = 0, labels=None,
-               batch_size: int = 0) -> np.ndarray:
+               batch_size: int = 0, unroll: int = 1) -> np.ndarray:
         """Generate n images in [-1, 1], float32 NHWC, deterministically.
 
         Under "pallas" the pixels do not depend on ``batch_size`` (the kernel
         computes each image alone); under "xla" PyTorch's convolutions may
         pick batch-dependent algorithms, which moves fp32 pixels by ulps.
+
+        ``unroll > 1`` generates that many consecutive batches a call (see
+        the module docstring); what does not fill u batches runs batch by
+        batch.  The pixels equal ``unroll=1``'s bit for bit.  Under "pallas"
+        each batch is one launch already: it warns and generates
+        sequentially, as the JAX package does.
         """
         bs = batch_size or n
+        u = max(1, int(unroll))
+        if u > 1 and self.kernels == "pallas":
+            warnings.warn("sample(unroll>1) applies to the xla sample path "
+                          "only; generating sequentially")
+            u = 1
         outs = []
-        for start in range(0, n, bs):
-            m = min(bs, n - start)
+        start = 0
+        while start < n:
+            m = bs * u if n - start >= bs * u else min(bs, n - start)
             y = None
             if self.conditional:
                 y = (np.asarray(labels[start:start + m]) if labels is not None
                      else self.labels(m, seed, offset=start))
-            outs.append(self.generate(self.noise(m, seed, offset=start), y))
+            z = self.noise(m, seed, offset=start)
+            outs.append(self._generate_unrolled(z, y, bs, u) if m > bs
+                        else self.generate(z, y))
+            start += m
         return np.concatenate(outs, axis=0)
 
     def sample_fixed(self, z, labels=None) -> np.ndarray:
@@ -151,3 +218,42 @@ class Sampler:
             y = (np.asarray(labels) if labels is not None
                  else self.labels(n, seed))
         return self.generate(z, y)
+
+
+class _UnrolledGraph:
+    """u eval forwards of one batch each, captured as one CUDA graph over
+    static input buffers (one per batch, each its own allocation, as an
+    eager call's input is)."""
+
+    def __init__(self, sampler: Sampler, bs: int, u: int):
+        dev = sampler.device
+        self.bs = bs
+        self.z = [torch.zeros((bs, sampler.nz), dtype=torch.float32,
+                              device=dev) for _ in range(u)]
+        self.y = ([torch.zeros((bs,), dtype=torch.int64, device=dev)
+                   for _ in range(u)] if sampler.conditional else None)
+
+        def forward():
+            return torch.cat([sampler._forward(
+                z, None if self.y is None else self.y[i])
+                for i, z in enumerate(self.z)])
+
+        # warm up eagerly (cuDNN chooses its algorithms on first use; the
+        # capture must find them chosen), on a side stream as capture runs
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            forward()
+        torch.cuda.current_stream(dev).wait_stream(side)
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph):
+            self.out = forward()
+
+    def run(self, z: torch.Tensor, y: Optional[torch.Tensor]) -> np.ndarray:
+        bs = self.bs
+        for i, buf in enumerate(self.z):
+            buf.copy_(z[i * bs:(i + 1) * bs])
+            if y is not None:
+                self.y[i].copy_(y[i * bs:(i + 1) * bs])
+        self.graph.replay()
+        return self.out.cpu().numpy()
