@@ -124,15 +124,43 @@ Phases, each of which fails the run (no exception is caught):
    under "pallas" (a warning, sequential v2), and the artifact's
    ``generate(256)`` against the Sampler's, by CUDA events.  Phase 2
    also times kernel 1's wrapper through the registered op against the
-   direct route (checks, then the launch).
+   direct route (checks, then the launch);
+16. world 1: full-width ``dcgan_celeba64`` (batch 128, fuse_stats on)
+   through the ``Trainer`` with ``mesh_shape=1`` in a one-rank NCCL group,
+   10 steps: 9 kernel-5 launches a step, the state bit for bit the plain
+   Trainer's (cuDNN deterministic), ms/step, and the profiler's count of
+   the step's all-reduces and NCCL's share of its device time;
+17. DP and FSDP on 2 ranks (NCCL, one a card, where there are two cards;
+   else gloo, both on the one card, asked for explicitly): full-width
+   ``dcgan_celeba64`` at a global batch of 128, ``mesh_shape=2`` and
+   ``mesh_shape=1, fsdp_shards=2``, each held to the single card's run at
+   steps 1 and 3 (``held``, within ``MESH_LIMITS``), 10 steps timed on
+   each rank, each rank's
+   bytes of parameters plus moments (FSDP: about half) and
+   ``memory_allocated``, and rank 0's grid (one v2 launch, none on rank
+   1);
+18. spatial: full-width ``dcgan_256_spatial`` (ngf=ndf=32, 256 px, batch
+   128) with ``spatial_shards=2`` on 2 ranks: step 1's losses, and the
+   parameters and losses at steps 1 and 3 (``held``), against the dense
+   single card's, 5 steps timed, and a
+   64-image grid through the spatial Sampler against the dense Sampler on
+   the same generator;
+19. sharded serving: ``ShardedSampler`` on 2 ranks under "pallas":
+   ``sample(256)`` against the single-card module path (4 kernel-1
+   launches a pass on each rank), then ``serve --shards 2 --ckpt`` (phase
+   15's checkpoint) answering 3 ``POST /sample`` within ``image_err`` of
+   the module path.  Each of 16-19 prints its backend, world, cards,
+   ms/step or ms/call and launch counts; ranks report their own counts.
 
 Phases 3-4, 5, 6, 7 (train, eval D), 8, 9 (train, eval D), 10, 11, 12
 (``grad_accum``, remat's plain twin, remat), 14 (streaming, in RAM,
-resumed, timed, ``evaluate``) and 15 (each command, the artifact's
-``generate``, the fixed-batch tail, ``unroll`` under "pallas") are the
-paths: each zeroes the launch counters just before it and reads them
-just after, and every kernel it names must have launched.  Each kernel's ``launches`` in the ``kernels``
-line sums its paths' counts, and ``launches_by_path`` lists them.
+resumed, timed, ``evaluate``), 15 (each command, the artifact's
+``generate``, the fixed-batch tail, ``unroll`` under "pallas") and 16-19
+(each mesh run, its ranks' counts summed) are the paths: each zeroes
+the launch counters just before it and reads them just after, and every
+kernel it names must have launched.  Each kernel's ``launches`` in the
+``kernels`` line sums its paths' counts, and ``launches_by_path`` lists
+them.
 Checkpoints, the dataset files and the flagship's trace go to the
 git-ignored ``runs/smoke``.  The last lines are the ``kernels`` JSON, the
 card's name and power limit, and ``{"ok": true, "device": {...}}``.
@@ -143,6 +171,12 @@ package beside this file.
 
 compares megakernel v2 of the checkout in DIR (the parent commit, say) with
 this one's, in turns on one card: the same image bits, and each run's times.
+
+    python3 chip_smoke.py --mesh-tolerance
+
+measures what phases 17-18's ``MESH_LIMITS`` sit between: the single card
+run twice, the correct mesh runs and the same runs with a fault planted,
+each against the single card at steps 1 and 3.
 """
 
 from __future__ import annotations
@@ -922,6 +956,646 @@ def against(other: str) -> int:
     return 0
 
 
+# ---------------------------------------------------------------------------
+# Phases 16-19: meshes of ranks (``tpugan_torch/parallel``).  The rank
+# functions run in processes that ``parallel.multihost.spawn`` starts (they
+# import this file as a module); each returns its own launch counts.
+# ---------------------------------------------------------------------------
+
+KERNEL_MODS = ("cuda_convt", "cuda_gen", "cuda_gen2", "cuda_conv",
+               "cuda_conv_stats")
+COUNT_KEYS = ("convt_affine_act", "v1", "v2", "conv_affine_act",
+              "conv_stats")
+
+
+def _rank_setup():
+    """A rank's process: the package importable, the main process's fp32
+    references (no TF32), the launch counters at zero."""
+    import importlib
+
+    import torch
+
+    sys.path.insert(0, str(ROOT))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mods = [importlib.import_module(f"tpugan_torch.ops.{m}")
+            for m in KERNEL_MODS]
+    for m in mods:
+        m.launches = 0
+
+    def counts():
+        return dict(zip(COUNT_KEYS, (m.launches for m in mods)))
+
+    return counts
+
+
+def _state_bytes(state) -> int:
+    """Bytes this rank holds of G's and D's parameters and both optimizers'
+    moments (the EMA is off in these runs)."""
+    import torch
+
+    total = 0
+    for m, opt in ((state.g, state.opt_g), (state.d, state.opt_d)):
+        total += sum(p.numel() * p.element_size() for p in m.parameters())
+        for st in opt.state.values():
+            total += sum(t.numel() * t.element_size() for t in st.values()
+                         if torch.is_tensor(t) and t.dim() > 0)
+    return total
+
+
+def _params(state) -> dict:
+    """{name: fp32 numpy} of G's and D's parameters, dense (a collective
+    under FSDP: every rank calls it)."""
+    sd = state.state_dict()
+    return {f"{part}.{k}": v.float().cpu().numpy()
+            for part in ("g", "d") for k, v in sd[part].items()}
+
+
+def _collective_share(tr, batches) -> float:
+    """The share of these steps' wall time this rank spends inside
+    ``torch.distributed``'s all_reduce, all_gather and broadcast (each
+    blocks until its peers arrive: waiting included), by the host's
+    clock."""
+    import torch
+    import torch.distributed as dist
+
+    spent = [0.0]
+    names = ("all_reduce", "all_gather", "broadcast")
+    saved = {n: getattr(dist, n) for n in names}
+
+    def timed(fn):
+        def run(*a, **k):
+            t = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                spent[0] += time.perf_counter() - t
+        return run
+
+    for n in names:
+        setattr(dist, n, timed(saved[n]))
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for b in batches:
+            tr.state, _ = tr.step_fn(tr.state, b)
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+    finally:
+        for n in names:
+            setattr(dist, n, saved[n])
+    return spent[0] / total
+
+
+# Phases 17-18's limits on a mesh run against the single card at steps 1
+# and 3 (``held``), by phase: the most share of parameters beyond 1e-5,
+# the least cosine of the two runs' updates, and the largest loss
+# difference relative to max(1, |loss|).  Each sits between the correct
+# mesh run's reading and the nearest planted fault's (``--mesh-tolerance``
+# on an H100, PERF.md; the single card run again reads 0 and 1 exactly):
+# DP step 1 share 1.2% / 5.6% (local BatchNorm statistics), cosine
+# 0.977 / 0.888; step 3 cosine 0.987 / 0.940; spatial step 1 share 2.3% /
+# 23.6% (statistics not reduced over space), cosine 0.956 / 0.530, step 3
+# cosine 0.963 / 0.633.
+MESH_LIMITS = {
+    "dp": {1: dict(share=0.03, cos=0.93, loss=1e-2),
+           3: dict(share=1.0, cos=0.965, loss=1e-2)},
+    "spatial": {1: dict(share=0.05, cos=0.9, loss=1e-2),
+                3: dict(share=1.0, cos=0.9, loss=1e-2)},
+}
+
+# Faults planted in a mesh run to show what the mesh checks of phases
+# 17-18 can see (``--mesh-tolerance``): each replaces one collective of the
+# port in the rank's process only.
+FAULTS = {
+    # each rank steps on its own rows' gradients
+    "no gradient all-reduce": ("tpugan_torch.parallel.collectives",
+                               "all_reduce_grads", lambda params, group: None),
+    # BatchNorm normalizes with each rank's rows' statistics
+    "local BatchNorm statistics": ("tpugan_torch.nn.layers", "batch_group",
+                                   lambda: None),
+    # a weight in sharded compute gets this rank's part of its gradient
+    "weight gradients not summed over space": (
+        "tpugan_torch.parallel.collectives", "feed_sharded",
+        lambda x, group: x),
+    # BatchNorm over a shard normalizes with the shard's statistics
+    "BatchNorm statistics not reduced over space": (
+        "tpugan_torch.parallel.spatial", "bn_groups", lambda x: []),
+}
+
+
+def _plant(fault) -> None:
+    import importlib
+
+    if fault is not None:
+        module, name, value = FAULTS[fault]
+        setattr(importlib.import_module(module), name, value)
+
+
+def _train_rank(rank, preset, over, held_at, timed_steps, grid,
+                fault=None):
+    """Phases 17-18 on one rank: the Trainer with the mesh of ``over``,
+    trained to each step of ``held_at`` (rank 0 returns the dense
+    parameters and the metrics there), then ``timed_steps`` timed steps
+    on its rows of each batch (none: not timed), and a grid (the
+    Trainer's, or the spatial Sampler against the dense one on the same
+    generator); ``fault`` plants one of ``FAULTS`` first."""
+    import numpy as np
+    import torch
+
+    counts = _rank_setup()
+    _plant(fault)
+    from tpugan_torch.data.datasets import load_dataset
+    from tpugan_torch.sample.sampler import Sampler
+    from tpugan_torch.configs import get_preset
+    from tpugan_torch.train.trainer import Trainer
+
+    cfg = get_preset(preset).override(over)
+    data = load_dataset("synthetic", "", image_size=cfg.model.image_size,
+                        channels=3, synthetic_size=cfg.data.synthetic_size,
+                        seed=cfg.train.seed)
+    tr = Trainer(cfg, data=data, device="cuda")
+    out = {"rank": rank, "device": str(tr.device),
+           "mesh": tuple((tr.mesh or tr.spatial_mesh).mesh_dim_names),
+           "fuse": tr._fuse_mode, "held": {}}
+    for step in held_at:
+        metrics = tr.train(step)
+        params = _params(tr.state)  # (collective under FSDP)
+        if rank == 0:
+            out["held"][step] = (params, metrics)
+    # the moments exist once the optimizers have stepped
+    out["state_bytes"] = _state_bytes(tr.state)
+    out["memory_allocated"] = torch.cuda.memory_allocated(tr.device)
+    out["counts"] = counts()
+    if not timed_steps:
+        return out
+    it = iter(tr._batches(data))
+    batches = [next(it) for _ in range(timed_steps)]
+    getattr(it, "close", lambda: None)()
+    # the step outside train(): under spatial sharding it needs the
+    # Trainer's spatial context, which train() holds only while it runs
+    with tr._spatial():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for b in batches:
+            tr.state, m = tr.step_fn(tr.state, b)
+        torch.cuda.synchronize()
+        out["ms_per_step"] = (time.perf_counter() - t0) * 1e3 / timed_steps
+        out["collective_share"] = _collective_share(tr, batches[:3])
+    out["finite"] = bool(all(np.isfinite(float(v)) for v in m.values()))
+    if grid:
+        z = Sampler(cfg, tr.g).noise(64, 0)
+        imgs = tr._grid(z, None)
+        if rank == 0 and tr.spatial_mesh is not None:
+            # the same generator through the dense Sampler
+            dense = Sampler(cfg.override({"train.spatial_shards": 0}),
+                            tr.g).sample_fixed(z)
+            out["grid_vs_dense"] = image_err(torch.from_numpy(imgs),
+                                             torch.from_numpy(dense))
+        out["grid_shape"] = None if imgs is None else imgs.shape
+    out["counts"] = counts()
+    return out
+
+
+def _against(got, want, start) -> dict:
+    """{step: (max |diff|, share of elements beyond 1e-5, update cosine,
+    {loss: (got, want)})} of one run's parameters and metrics
+    (``{step: (params, metrics)}``) against another's at each step of
+    ``want``, both runs from the parameters ``start``; the cosine is that
+    of the two runs' updates since ``start``, all parameters as one
+    vector."""
+    import numpy as np
+
+    out = {}
+    for step, (want_p, want_m) in sorted(want.items()):
+        got_p, got_m = got[step]
+        names = [k for k in want_p if k in start]  # parameters
+        diff = [np.abs(got_p[k] - want_p[k]) for k in names]
+        du = np.concatenate([(got_p[k] - start[k]).ravel() for k in names])
+        dw = np.concatenate([(want_p[k] - start[k]).ravel() for k in names])
+        out[step] = (
+            max(float(d.max()) for d in diff),
+            sum(int((d > 1e-5).sum()) for d in diff)
+            / sum(d.size for d in diff),
+            float(du @ dw / (np.linalg.norm(du) * np.linalg.norm(dw))),
+            {k: (got_m[k], want_m[k]) for k in ("loss_d", "loss_g")})
+    return out
+
+
+def _single_card(cfg, steps, name):
+    """The single card's Trainer on ``cfg`` (the synthetic set): (its
+    parameters at the start, {step: (parameters, metrics)}, its bytes of
+    parameters and moments)."""
+    import torch
+
+    from tpugan_torch.data.datasets import load_dataset
+    from tpugan_torch.train.trainer import Trainer
+
+    tr = Trainer(cfg.override({"train.ckpt_dir": str(RUNS / name),
+                               "train.out_dir": str(RUNS / f"{name}_out")}),
+                 data=load_dataset("synthetic", "",
+                                   image_size=cfg.model.image_size,
+                                   channels=3,
+                                   synthetic_size=cfg.data.synthetic_size,
+                                   seed=cfg.train.seed),
+                 device=torch.device("cuda", 0))
+    start = {f"{part}.{k}": p.detach().float().cpu().numpy()
+             for part, m in (("g", tr.state.g), ("d", tr.state.d))
+             for k, p in m.named_parameters()}
+    held = {}
+    for step in steps:
+        m = tr.train(step)
+        held[step] = (_params(tr.state), m)
+    state_bytes = _state_bytes(tr.state)
+    del tr
+    torch.cuda.empty_cache()
+    return start, held, state_bytes
+
+
+def _serve_rank(rank, n, seed):
+    """Phase 19 on one rank: ``ShardedSampler`` over every rank under
+    "pallas" (rank 0 samples ``n`` images; the others serve its round)."""
+    import torch
+
+    counts = _rank_setup()
+    from tpugan_torch.parallel import ShardedSampler, make_mesh
+    from tpugan_torch.parallel.multihost import rank_device
+
+    dev = rank_device("cuda")
+    cfg, g = make_generator("dcgan_celeba64", dev,
+                            {"train.kernels": "pallas"})
+    s = ShardedSampler(cfg, g, make_mesh(None, "cuda"))
+    out = {"rank": rank, "device": str(dev)}
+    if rank != 0:
+        s.serve()
+    else:
+        imgs = s.sample(n, seed)  # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        imgs = s.sample(n, seed)
+        out["ms"] = (time.perf_counter() - t0) * 1e3
+        s.close()
+        out["images"] = imgs
+    out["counts"] = counts()
+    return out
+
+
+# Phases 17's and 18's runs: full-width ``dcgan_celeba64`` and
+# ``dcgan_256_spatial`` at batch 128 on the synthetic set (a mesh forces
+# fuse_stats off); each single card reference sets fuse_stats off and no
+# spatial sharding.
+PHASE17 = {"data.dataset": "synthetic",
+           "data.synthetic_size": 10 * TRAIN_BATCH,
+           "train.kernels": "pallas", "train.ckpt_every": 0,
+           "train.log_every": 1, "train.sample_every": 0,
+           "train.fuse_stats": "on"}
+PHASE18 = {"data.dataset": "synthetic",
+           "data.synthetic_size": 2 * TRAIN_BATCH,
+           "data.batch_size": TRAIN_BATCH, "train.ckpt_every": 0,
+           "train.log_every": 1, "train.sample_every": 0,
+           "train.spatial_shards": 2}
+
+
+def mesh_tolerance() -> int:
+    """``--mesh-tolerance``: the readings that phases 17-18's
+    mesh limits sit between.  At steps 1 and 3 of their runs (``PHASE17``
+    with ``mesh_shape=2``, ``PHASE18``), against the single card's
+    (``_against``): the single card run again from the same seed (cuDNN
+    left nondeterministic, as in every run), the correct mesh run, and the
+    same mesh run with each fault of ``FAULTS`` planted.  One JSON line a
+    reading."""
+    import torch
+
+    sys.path.insert(0, str(ROOT))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from tpugan_torch.configs import get_preset
+    from tpugan_torch.parallel import multihost
+
+    backend2 = "nccl" if torch.cuda.device_count() >= 2 else "gloo"
+    log(f"[tolerance] {card()}, 2 ranks on {backend2}")
+    # (preset, the mesh run's overrides, the single card's)
+    runs = (
+        ("dcgan_celeba64", {**PHASE17, "train.mesh_shape": 2},
+         {**PHASE17, "train.fuse_stats": "off"},
+         (None, "no gradient all-reduce", "local BatchNorm statistics")),
+        ("dcgan_256_spatial", PHASE18,
+         {**PHASE18, "train.spatial_shards": 0},
+         (None, "weight gradients not summed over space",
+          "BatchNorm statistics not reduced over space")))
+    for preset, over, single, faults in runs:
+        cfg = get_preset(preset).override(single)
+        start, want, _ = _single_card(cfg, (1, 3), "tol_a")
+        _, again, _ = _single_card(cfg, (1, 3), "tol_b")
+        rows = [("single card, again", _against(again, want, start))]
+        for fault in faults:
+            ranks = multihost.spawn(
+                _train_rank, 2, (preset, {
+                    **over, "train.ckpt_dir": str(RUNS / "tol"),
+                    "train.out_dir": str(RUNS / "tol_out")}, (1, 3), 0,
+                    False, fault), backend=backend2, device="cuda",
+                timeout=600)
+            rows.append((f"mesh {fault or 'correct'}",
+                         _against(ranks[0]["held"], want, start)))
+        for label, by_step in rows:
+            for step, (worst, share, cos, losses) in by_step.items():
+                print(json.dumps({
+                    "preset": preset, "run": label, "step": step,
+                    "max_abs_diff": worst, "share_beyond_1e-5": share,
+                    "update_cosine": cos, "losses": losses}), flush=True)
+    log(f"[tolerance] {card()}")
+    return 0
+
+
+def parallel_phases(dev, zero_counts, read_counts, add_counts) -> dict:
+    """Phases 16-19 (module docstring); returns their numbers."""
+    import socket
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpugan_torch import cli
+    from tpugan_torch.configs import get_preset
+    from tpugan_torch.data.datasets import load_dataset
+    from tpugan_torch.ops import convs, cuda_convt
+    from tpugan_torch.parallel import multihost
+    from tpugan_torch.sample.sampler import seeded_noise
+    from tpugan_torch.train.trainer import Trainer
+
+    found = {}
+    cards = torch.cuda.device_count()
+    # two ranks: NCCL, one a card, where there are two cards; else gloo,
+    # both ranks on the one card, asked for explicitly
+    backend2 = "nccl" if cards >= 2 else "gloo"
+
+    def held(label, got, want, cfg, start, limits):
+        """A run's parameters and losses against the single card's
+        (``_against``) at steps 1 and 3, within ``limits`` (of
+        ``MESH_LIMITS``); after step 1 every parameter within 2 lr (Adam's
+        first update is +-lr)."""
+        lr = max(cfg.optim.lr_g, cfg.optim.lr_d)
+        for step, (worst, share, cos, loss) in _against(
+                got, want, start).items():
+            log(f"[mesh] {label}: step {step} against the single card: "
+                f"parameters max |diff| {worst:.3e}, {100 * share:.4f}% "
+                f"beyond 1e-5, update cosine {cos:.6f}; losses (run, "
+                f"single) {loss}")
+            lim = limits[step]
+            require((step > 1 or worst <= 2 * lr * 1.001)
+                    and share <= lim["share"] and cos >= lim["cos"]
+                    and all(abs(a - b) <= lim["loss"] * max(1, abs(b))
+                            for a, b in loss.values()),
+                    f"{label} step {step}: max {worst}, {share:.4%} beyond "
+                    f"1e-5, update cosine {cos}, losses {loss}: outside "
+                    f"{lim}")
+
+    # -- 16. world 1: the Trainer in a one-rank NCCL group ----------------
+    t0 = time.time()
+    cfg16 = get_preset("dcgan_celeba64").override({
+        **PHASE17, "train.out_dir": str(RUNS / "mesh1_out")})
+    data16 = load_dataset("synthetic", "", image_size=64, channels=3,
+                          synthetic_size=cfg16.data.synthetic_size,
+                          seed=cfg16.train.seed)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    rdzv = tempfile.mkdtemp(prefix="smoke_rdzv_")
+    multihost.initialize_multihost("file://" + rdzv + "/store", 1, 0,
+                                   device="cuda")
+    require(dist.get_backend() == "nccl", f"phase 16 on {dist.get_backend()}")
+    try:
+        plain = Trainer(cfg16.override({"train.ckpt_dir":
+                                        str(RUNS / "mesh1_plain")}),
+                        data=data16, device=dev)
+        plain.train(10)
+        zero_counts()
+        tr16 = Trainer(cfg16.override({"train.mesh_shape": 1,
+                                       "train.ckpt_dir":
+                                       str(RUNS / "mesh1")}),
+                       data=data16, device=dev)
+        require(tr16.mesh is not None and tr16._fuse_mode == "on",
+                "phase 16: no one-rank mesh, or fuse_stats changed")
+        tr16.train(10)
+        counts = read_counts("train dcgan_celeba64 mesh_shape=1 (NCCL, "
+                             "world 1)")
+        require(counts["conv_stats"] == 9 * 10,
+                f"world 1: {counts['conv_stats']} kernel-5 launches in 10 "
+                f"steps, not 90")
+        require(states_equal(plain.state, tr16.state),
+                f"world 1: the state differs from the plain Trainer's by "
+                f"{max_state_diff(plain.state, tr16.state)}")
+        torch.backends.cudnn.deterministic = False
+        ms16 = run_steps(tr16, 10, data16)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            prof_ms = run_steps(tr16, 5, data16)
+        ev = prof.key_averages()
+        kern = [e for e in ev
+                if e.device_type == torch.autograd.DeviceType.CUDA]
+        busy = sum(e.self_device_time_total for e in kern)
+        nccl = sum(e.self_device_time_total for e in kern
+                   if "nccl" in e.key.lower())
+        host_ar = sum(e.count for e in ev if e.key == "c10d::allreduce_")
+        found["world1"] = dict(ms_per_step=ms16, prof_ms=prof_ms,
+                               nccl_device_share=nccl / max(busy, 1e-9),
+                               allreduce_per_step=host_ar / 5)
+        log(f"[mesh] 16 world 1, backend nccl, 1 card ({card()}): "
+            f"{ms16:.4f} ms/step; kernel 5 {counts['conv_stats'] // 10} "
+            f"launches a step; state bit for bit the plain Trainer's after "
+            f"10 steps (cuDNN deterministic); profiler: "
+            f"{host_ar / 5:.1f} c10d::allreduce_ a step on the host, NCCL "
+            f"kernels {nccl / 1e3 / 5:.4f} ms/step of {busy / 1e3 / 5:.4f} "
+            f"ms/step device time ({100 * nccl / max(busy, 1e-9):.2f}%: a "
+            f"one-rank all-reduce launches no kernel)")
+        del plain, tr16
+    finally:
+        torch.backends.cudnn.deterministic = False
+        multihost.shutdown()
+        shutil.rmtree(rdzv, ignore_errors=True)
+    log(f"[mesh] phase 16 in {time.time() - t0:.1f}s")
+
+    # -- 17. DP and FSDP on 2 ranks ----------------------------------------
+    t0 = time.time()
+    cfg17 = get_preset("dcgan_celeba64").override(PHASE17)
+    require(cfg17.model.ngf == 64 and cfg17.model.ndf == 64
+            and cfg17.data.batch_size == TRAIN_BATCH,
+            "phase 17: not full-width dcgan_celeba64")
+    # the single card's steps 1 and 3: fuse_stats off, as the mesh runs
+    # force it
+    start17, want17, single_bytes = _single_card(
+        cfg17.override({"train.fuse_stats": "off"}), (1, 3), "dp_ref")
+    runs17 = {}
+    for label, extra in (("DP mesh_shape=2", {"train.mesh_shape": 2}),
+                         ("FSDP mesh_shape=1 fsdp_shards=2",
+                          {"train.mesh_shape": 1, "train.fsdp_shards": 2})):
+        over = {**PHASE17, **extra,
+                "train.ckpt_dir": str(RUNS / f"mesh17_{len(runs17)}"),
+                "train.out_dir": str(RUNS / f"mesh17_{len(runs17)}_out")}
+        ranks = multihost.spawn(_train_rank, 2,
+                                ("dcgan_celeba64", over, (1, 3), 10, True),
+                                backend=backend2, device="cuda",
+                                timeout=600)
+        r0 = ranks[0]
+        require(all(r["fuse"] == "off" for r in ranks)
+                and all(r["finite"] for r in ranks),
+                f"{label}: fuse_stats {[r['fuse'] for r in ranks]} or "
+                f"non-finite metrics")
+        held(label, r0["held"], want17, cfg17, start17, MESH_LIMITS["dp"])
+        total = {k: sum(r["counts"][k] for r in ranks) for k in COUNT_KEYS}
+        add_counts(f"train dcgan_celeba64 {label} (2 ranks, "
+                   f"{backend2})", total)
+        require(r0["counts"]["v2"] == 1 and ranks[1]["counts"]["v2"] == 0,
+                f"{label}: v2 launches by rank "
+                f"{[r['counts']['v2'] for r in ranks]}: the grid is rank "
+                f"0's")
+        runs17[label] = ranks
+        log(f"[mesh] 17 {label}, backend {backend2}, world 2 on "
+            f"{min(cards, 2)} card(s) {[r['device'] for r in ranks]} "
+            f"({card()}): ms/step by rank "
+            f"{[round(r['ms_per_step'], 4) for r in ranks]} (global batch "
+            f"{TRAIN_BATCH}); in collectives (host clock, waits "
+            f"included) {[round(r['collective_share'], 4) for r in ranks]} "
+            f"of a step; parameters + moments held by rank "
+            f"{[r['state_bytes'] for r in ranks]} bytes (single card "
+            f"{single_bytes}); memory_allocated after step 3 by rank "
+            f"{[r['memory_allocated'] for r in ranks]}; launches by rank "
+            f"{[r['counts'] for r in ranks]}")
+    dp_b = runs17["DP mesh_shape=2"][0]["state_bytes"]
+    fsdp_b = runs17["FSDP mesh_shape=1 fsdp_shards=2"][0]["state_bytes"]
+    require(fsdp_b < 0.6 * dp_b, f"FSDP holds {fsdp_b} bytes a rank against "
+            f"DP's {dp_b}: the shards are not ~half")
+    found["dp"] = runs17
+    log(f"[mesh] phase 17 in {time.time() - t0:.1f}s")
+
+    # -- 18. spatial: dcgan_256_spatial, spatial_shards=2 -----------------
+    t0 = time.time()
+    cfg18 = get_preset("dcgan_256_spatial").override(PHASE18)
+    require(cfg18.model.image_size == 256 and cfg18.model.ngf == 32
+            and cfg18.model.ndf == 32, "phase 18: not full-width "
+            "dcgan_256_spatial")
+    start18, want18, _ = _single_card(
+        cfg18.override({"train.spatial_shards": 0}), (1, 3), "sp_ref")
+    m_dense = want18[1][1]
+    ranks = multihost.spawn(
+        _train_rank, 2, ("dcgan_256_spatial", {
+            **PHASE18, "train.ckpt_dir": str(RUNS / "sp"),
+            "train.out_dir": str(RUNS / "sp_out")},
+            (1, 3), 5, True), backend=backend2, device="cuda", timeout=600)
+    r0 = ranks[0]
+    require(r0["mesh"] == ("space",) and all(r["finite"] for r in ranks)
+            and all(r["collective_share"] > 0 for r in ranks),
+            f"phase 18: mesh {r0['mesh']}, collectives' shares "
+            f"{[r['collective_share'] for r in ranks]}")
+    got_m = r0["held"][1][1]
+    for k in ("loss_d", "loss_g", "d_real", "d_fake"):
+        log(f"[mesh] 18 step 1 {k}: spatial {got_m[k]:.6f} dense "
+            f"{m_dense[k]:.6f}")
+        # bf16 activations through 6 + 6 layers: phase 5's 1e-2 bound
+        require(abs(got_m[k] - m_dense[k]) <= 1e-2,
+                f"phase 18 step 1 {k}: {got_m[k]} vs {m_dense[k]}")
+    held("spatial_shards=2", r0["held"], want18, cfg18, start18,
+         MESH_LIMITS["spatial"])
+    err, ok = r0["grid_vs_dense"]
+    require(ok and r0["grid_shape"] == (64, 256, 256, 3),
+            f"phase 18: the spatial grid against the dense one: {err}")
+    add_counts(f"train dcgan_256_spatial spatial_shards=2 (2 ranks, "
+               f"{backend2})",
+               {k: sum(r["counts"][k] for r in ranks) for k in COUNT_KEYS})
+    found["spatial"] = ranks
+    log(f"[mesh] 18 spatial_shards=2, backend {backend2}, world 2 on "
+        f"{min(cards, 2)} card(s) ({card()}): ms/step by rank "
+        f"{[round(r['ms_per_step'], 4) for r in ranks]} (256 px, batch "
+        f"{TRAIN_BATCH}, 5 steps), in collectives "
+        f"{[round(r['collective_share'], 4) for r in ranks]} of a step "
+        f"(host clock, waits included); a 64-image grid through the spatial "
+        f"Sampler against the dense Sampler: max err {err:.3e}; phase 18 in "
+        f"{time.time() - t0:.1f}s")
+
+    # -- 19. sharded serving: ShardedSampler, then serve --shards ----------
+    t0 = time.time()
+    ranks = multihost.spawn(_serve_rank, 2, (BATCH, 0), backend=backend2,
+                            device="cuda", timeout=600)
+    cfg19, g19 = make_generator("dcgan_celeba64", dev,
+                                {"train.kernels": "pallas"})
+    z = torch.from_numpy(seeded_noise(cfg19.model.nz, BATCH, 0)).to(dev)
+    before = cuda_convt.launches
+    with convs.using_impl("pallas"), torch.no_grad():
+        want = g19(z).float().cpu().numpy()
+    require(cuda_convt.launches - before == 4,
+            "the single-card module path: not 4 kernel-1 launches")
+    got = ranks[0]["images"]
+    exact = bool(np.array_equal(got, want))
+    err, ok = image_err(torch.from_numpy(got), torch.from_numpy(want))
+    require(ok, f"ShardedSampler.sample({BATCH}) against the module path: "
+            f"{err}")
+    require(all(r["counts"]["convt_affine_act"] == 2 * 4 for r in ranks),
+            f"kernel 1 launches by rank {[r['counts'] for r in ranks]}: "
+            f"not 4 a GBlock pass, two passes (warm + timed) a rank")
+    add_counts(f"ShardedSampler.sample({BATCH}) pallas (2 ranks, "
+               f"{backend2})",
+               {k: sum(r["counts"][k] for r in ranks) for k in COUNT_KEYS})
+    log(f"[mesh] 19 ShardedSampler, backend {backend2}, world 2 on "
+        f"{min(cards, 2)} card(s) ({card()}): sample({BATCH}) "
+        f"{ranks[0]['ms']:.4f} ms; kernel 1 launches by rank "
+        f"{[r['counts']['convt_affine_act'] for r in ranks]} (4 a GBlock "
+        f"pass of {BATCH // 2} images, warm + timed); pixels "
+        f"{'bit for bit' if exact else f'within {err:.3e} of'} the "
+        f"single-card module path under pallas")
+    # serve --shards 2 --ckpt (phase 15's checkpoint): 3 POST /sample
+    ckpt = str(RUNS / "cli" / "run" / "ckpt")
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    url = f"http://127.0.0.1:{port}"
+    served = {"npy": []}
+
+    def client():
+        try:
+            for _ in range(1200):
+                try:
+                    with urllib.request.urlopen(url + "/healthz",
+                                                timeout=5) as r:
+                        served["health"] = json.loads(r.read())
+                    break
+                except OSError:
+                    time.sleep(0.1)
+            for seed in range(3):
+                req = urllib.request.Request(
+                    url + "/sample", method="POST", data=json.dumps(
+                        {"n": 16, "seed": seed, "format": "npy"}).encode())
+                with urllib.request.urlopen(req, timeout=120) as r:
+                    served["npy"].append(np.load(io.BytesIO(r.read())))
+        finally:
+            os.kill(os.getpid(), signal.SIGTERM)
+
+    th = threading.Thread(target=client, daemon=True)
+    th.start()
+    argv = ["--device", "cuda", "serve", "--ckpt", ckpt, "--shards", "2",
+            "--host", "127.0.0.1", "--port", str(port)]
+    if backend2 == "gloo":
+        argv = ["--backend", "gloo", *argv]
+    cli.main(argv)
+    th.join(timeout=60)
+    require(not th.is_alive() and len(served["npy"]) == 3,
+            f"serve --shards 2: {len(served['npy'])} answers of 3")
+    cfg_c, g_c, _ = cli._load_generator_from_ckpt(ckpt, dev)
+    errs = []
+    for seed, img in enumerate(served["npy"]):
+        zc = torch.from_numpy(seeded_noise(cfg_c.model.nz, 16, seed)).to(dev)
+        with convs.using_impl("pallas"), torch.no_grad():
+            ref = g_c.eval()(zc).float().cpu().numpy()
+        e, ok = image_err(torch.from_numpy(img), torch.from_numpy(ref))
+        require(ok, f"serve --shards: seed {seed} max err {e}")
+        errs.append(e)
+    log(f"[mesh] 19 serve --shards 2 --ckpt ({backend2}): 3 POST /sample "
+        f"answered, each within {max(errs):.3e} of the module path; phase "
+        f"19 in {time.time() - t0:.1f}s")
+    found["serve_err"] = max(errs)
+    return found
+
+
 def main() -> int:
     import torch
 
@@ -960,14 +1634,17 @@ def main() -> int:
     # each path's launches by kernel: counted from zero, read after it
     path_counts = {}
 
-    def read_counts(path: str) -> dict:
-        counts = {"convt_affine_act": cuda_convt.launches,
-                  "v1": cuda_gen.launches, "v2": cuda_gen2.launches,
-                  "conv_affine_act": cuda_conv.launches,
-                  "conv_stats": cuda_conv_stats.launches}
+    def add_counts(path: str, counts: dict) -> dict:
         path_counts[path] = counts
         log(f"[paths] launches on {path}: {counts}")
         return counts
+
+    def read_counts(path: str) -> dict:
+        return add_counts(path, {
+            "convt_affine_act": cuda_convt.launches,
+            "v1": cuda_gen.launches, "v2": cuda_gen2.launches,
+            "conv_affine_act": cuda_conv.launches,
+            "conv_stats": cuda_conv_stats.launches})
 
     # the plain versions are the references: full fp32 matmuls and convs
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2386,7 +3063,13 @@ def main() -> int:
         f"{prof['images_per_sec']} images/s, "
         f"{prof['flops_per_step']:.4e} FLOPs/step; card {card()}")
 
-    # -- 16. report ---------------------------------------------------------
+    # -- 16-19. meshes of ranks --------------------------------------------
+    t0 = time.time()
+    torch.cuda.empty_cache()
+    parallel_phases(dev, zero_counts, read_counts, add_counts)
+    log(f"[mesh] phases 16-19 in {time.time() - t0:.1f}s; card {card()}")
+
+    # -- 20. report ---------------------------------------------------------
     for key, rep_k in report.items():
         by_path = {p: c[key] for p, c in path_counts.items() if c[key]}
         rep_k["launches"] = sum(by_path.values())
@@ -2414,4 +3097,6 @@ if __name__ == "__main__":
         sys.exit(measure_v2(sys.argv[2]))
     if sys.argv[1:2] == ["--against"]:
         sys.exit(against(sys.argv[2]))
+    if sys.argv[1:2] == ["--mesh-tolerance"]:
+        sys.exit(mesh_tolerance())
     sys.exit(main())

@@ -68,6 +68,53 @@ def twin_train_states(preset, overrides, **fields):
     return cfg, g, d, state, pcfg, pstate
 
 
+def _fill(shapes, arrays, prefix=""):
+    """A nested dict of ``jax.ShapeDtypeStruct`` leaves -> the same tree of
+    arrays, each taken from ``arrays`` by its dotted key."""
+    out = {}
+    for k, v in shapes.items():
+        key = f"{prefix}{k}"
+        if isinstance(v, dict):
+            out[k] = _fill(v, arrays, key + ".")
+        else:
+            a = arrays[key]
+            assert a.shape == v.shape, (key, a.shape, v.shape)
+            out[k] = jnp.asarray(a, v.dtype)
+    return out
+
+
+def jax_module_from_port(jmodule, module):
+    """(params, state) of the JAX module ``jmodule`` holding the port
+    ``module``'s values (its structure from ``jax.eval_shape`` of
+    ``init``: nothing is initialized twice)."""
+    params, state = jax.eval_shape(jmodule.init, jax.random.PRNGKey(0))
+    arrays = module_arrays(module)
+    return _fill(params, arrays), _fill(state, arrays)
+
+
+def jax_state_from_port(cfg, g, d, pstate):
+    """The JAX ``TrainState`` of a fresh port ``TrainState`` (step 0): the
+    reverse of ``load_jax_train_state`` for a state no optimizer has
+    stepped, so that both packages start from the port's seeded
+    initialization."""
+    from tpugan.train.state import TrainState, make_optimizers
+
+    assert pstate.step == 0
+    params_g, state_g = jax_module_from_port(g, pstate.g)
+    params_d, state_d = jax_module_from_port(d, pstate.d)
+    tx_g, tx_d = make_optimizers(cfg)
+    zero = (jnp.zeros((), jnp.float32) if cfg.train.ada_target != 0
+            else None)
+    return TrainState(
+        params_g=params_g, state_g=state_g, opt_g=tx_g.init(params_g),
+        params_d=params_d, state_d=state_d, opt_d=tx_d.init(params_d),
+        rng=jnp.asarray(pstate.rng, jnp.uint32),
+        step=jnp.zeros((), jnp.int32),
+        params_g_ema=(jax_module_from_port(g, pstate.g_ema)[0]
+                      if pstate.g_ema is not None else None),
+        ada_p=zero, ada_rt=zero)
+
+
 def module_arrays(module):
     """{dotted name: float32 numpy} of a port module's params and buffers."""
     return {k: v.detach().float().numpy()
@@ -162,6 +209,27 @@ def assert_state_close(jstate, pstate, atol, buf_tol=1e-4):
                                    atol=1e-9)
 
 
+def assert_moments_close(jstate, pstate, rel=1e-5):
+    """Both optimizers' moments of the port state within ``rel`` of each
+    tensor's largest of the JAX state's, their counts exact (the JAX
+    state carried into a copy of the port state, to compare by name)."""
+    import copy
+
+    from tpugan_torch.ckpt.from_jax import load_jax_train_state
+
+    want = load_jax_train_state(copy.deepcopy(pstate), jstate).state_dict()
+    got = pstate.state_dict()
+    for part in ("opt_g", "opt_d"):
+        assert sorted(got[part]["state"]) == sorted(want[part]["state"])
+        for p, st in want[part]["state"].items():
+            assert sorted(st) == sorted(got[part]["state"][p])
+            for name, v in st.items():
+                v = v.numpy()
+                np.testing.assert_allclose(
+                    got[part]["state"][p][name].numpy(), v, rtol=0,
+                    atol=rel * np.abs(v).max(), err_msg=f"{part} {p} {name}")
+
+
 def port_states_equal(a, b):
     """Two port TrainStates hold the same bits: modules, EMA, both
     optimizers' moments and counts, key and step."""
@@ -185,3 +253,20 @@ def port_states_equal(a, b):
         for p, st in oa["state"].items():
             for name, t in st.items():
                 assert torch.equal(t, ob["state"][p][name]), (key, p, name)
+
+
+def spawn_cases(cases, world):
+    """Start ``_torch_port_workers.run_cases(cases)`` on ``world`` gloo
+    ranks in a background thread (the JAX references are computed
+    meanwhile); ``.result()`` is each rank's list of results."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from _torch_port_workers import run_cases
+    from tpugan_torch.parallel import multihost
+
+    pool = ThreadPoolExecutor(1)
+    try:
+        return pool.submit(multihost.spawn, run_cases, world, (cases,),
+                           device="cpu", timeout=1200)
+    finally:
+        pool.shutdown(wait=False)

@@ -143,14 +143,34 @@ def test_convert_inception_writes_the_jax_packages_pickle(tmp_path, capsys):
 
 
 def test_not_ported_options_name_their_items(tmp_path, capsys):
+    """bench names its Queue A item; the JAX CLI's refusals of a mesh: serve
+    --shards without --ckpt, and a mesh larger than the ranks running (a
+    process launched as one rank of one)."""
     with pytest.raises(NotImplementedError, match="Benchmark"):
         cli.main(["--device", "cpu", "bench", "--quick"])
-    with pytest.raises(NotImplementedError, match="Parallel"):
-        cli.main(["--device", "cpu", "serve", "--ckpt", str(tmp_path),
+    with pytest.raises(SystemExit, match="--shards needs --ckpt"):
+        cli.main(["--device", "cpu", "serve", "--model", str(tmp_path),
                   "--shards", "4"])
-    with pytest.raises(NotImplementedError, match="Parallel"):
-        run(capsys, "train", "dcgan_mnist", "--out", str(tmp_path / "m"),
-            *_sets(SETS + ["train.mesh_shape=4"]))
+    with pytest.raises(SystemExit, match="needs --model or --ckpt"):
+        cli.main(["--device", "cpu", "serve", "--shards", "4"])
+    env = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0",
+           "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": "0"}
+    old = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        with pytest.raises(ValueError, match="only 1 rank"):
+            run(capsys, "train", "dcgan_mnist", "--out",
+                str(tmp_path / "m"), *_sets(SETS + ["train.mesh_shape=4"]))
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        import torch.distributed as dist
+
+        if dist.is_initialized():
+            dist.destroy_process_group()
     with pytest.raises(SystemExit):
         cli.main(["--device", "cpu", "presets", "--bogus"])
     with pytest.raises(SystemExit, match="config.json"):

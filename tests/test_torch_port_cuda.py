@@ -756,3 +756,116 @@ def test_unroll_replays_unroll_1_bits_on_the_card(cuda, preset, overrides):
     want = s.sample(19, seed=3, batch_size=4)
     got = s.sample(19, seed=3, batch_size=4, unroll=2)
     np.testing.assert_array_equal(got, want)
+
+
+# -- meshes of ranks (tpugan_torch/parallel) on the card --------------------
+
+def test_halo_convs_with_gloo_ranks_on_the_card(cuda):
+    """Two gloo ranks sharing the card: the H-sharded conv and ConvT and
+    their gradients against the dense ops on the card (the collectives
+    take CUDA tensors; fp32, TF32 off: 1e-4 of the largest value)."""
+    from _torch_port_workers import run_cases
+    from tpugan_torch.parallel import multihost
+
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((2, 16, 16, 8)).astype(np.float32)
+    w = {"conv": (rng.standard_normal((4, 4, 8, 16)) * 0.1)
+         .astype(np.float32),
+         "convt": (rng.standard_normal((4, 4, 8, 4)) * 0.1)
+         .astype(np.float32)}
+    cases = [("halo_conv", dict(kind=k, dim=1, n=2, x=x, w=w[k],
+                                device="cuda")) for k in ("conv", "convt")]
+    got = multihost.spawn(run_cases, 2, (cases,), backend="gloo",
+                          device="cuda", timeout=300)[0]
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        _check_halo(cuda, x, w, got)
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+
+
+def _check_halo(cuda, x, w, got):
+    from tpugan_torch.ops import convs
+
+    for kind, (out, dx, dw) in zip(("conv", "convt"), got):
+        xt = torch.from_numpy(x).to(cuda).requires_grad_()
+        wt = torch.from_numpy(w[kind]).to(cuda).requires_grad_()
+        op = convs.conv2d if kind == "conv" else convs.conv_transpose2d
+        ref = op(xt, wt, stride=2, padding=1)
+        torch.tanh(ref).sum().backward()
+        for a, b in ((out, ref), (dx, xt.grad), (dw, wt.grad)):
+            assert_fp32_close(torch.from_numpy(a), b.detach().cpu())
+
+
+def test_sharded_sampler_runs_kernel_1_on_each_rank(cuda):
+    """ShardedSampler over two gloo ranks on the card under "pallas": each
+    rank launches kernel 1 once per GBlock on its half, and the images are
+    the one-card module path's within chip_smoke.image_err's limit (kernel
+    1's plan depends on the batch: 8 images a rank sum in another order
+    than 16)."""
+    from _torch_port_workers import numpy_tree, run_cases
+    from tpugan_torch.ops import convs
+    from tpugan_torch.parallel import multihost
+    from tpugan_torch.sample.sampler import seeded_noise
+
+    over = {"model.ngf": 16, "model.nz": 16}
+    cfg = get_preset("dcgan_celeba64").override(over)
+    g = build_generator(cfg.model, "bf16", device=cuda,
+                        generator=torch.Generator(device=cuda)
+                        .manual_seed(0)).eval()
+    sd = numpy_tree({k: v.cpu() for k, v in g.state_dict().items()})
+    cases = [("sharded_sample", dict(preset="dcgan_celeba64",
+                                     overrides=over, sd=sd, n=16, seed=3,
+                                     kernels="pallas", device="cuda"))]
+    got = multihost.spawn(run_cases, 2, (cases,), backend="gloo",
+                          device="cuda", timeout=300)[0][0]
+    assert got["launches"] == 4  # block0..2 and the final GBlock
+    z = torch.from_numpy(seeded_noise(16, 16, 3)).to(cuda)
+    with convs.using_impl("pallas"), torch.no_grad():
+        want = g(z).float().cpu().numpy()
+    err = np.abs(got["images"] - want)
+    assert (err <= 2.0 ** -7 * np.abs(want)
+            + 1e-2 * np.abs(want).max()).all(), err.max()
+
+
+def test_one_rank_nccl_trainer_is_the_plain_trainer(cuda, tmp_path):
+    """mesh_shape=1 in a one-rank NCCL group: fuse_stats stays on (kernel
+    5 runs, 3 a D forward), and two steps end bit for bit where the plain
+    Trainer's do (cuDNN deterministic)."""
+    import torch.distributed as dist
+
+    from tpugan_torch.ops import cuda_conv_stats
+    from tpugan_torch.parallel import multihost
+    from tpugan_torch.train.trainer import Trainer
+
+    over = {"data.dataset": "synthetic", "data.synthetic_size": 64,
+            "data.batch_size": 16, "model.ngf": 16, "model.ndf": 16,
+            "train.fuse_stats": "on", "train.log_every": 1,
+            "train.sample_every": 0, "train.ckpt_every": 0}
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    multihost.initialize_multihost(f"file://{tmp_path}/store", 1, 0,
+                                   device="cuda")
+    try:
+        assert dist.get_backend() == "nccl"
+        runs = []
+        for extra in ({}, {"train.mesh_shape": 1}):
+            cfg = get_preset("dcgan_celeba64").override({
+                **over, **extra,
+                "train.out_dir": str(tmp_path / f"o{len(runs)}"),
+                "train.ckpt_dir": str(tmp_path / f"c{len(runs)}")})
+            cuda_conv_stats.launches = 0
+            t = Trainer(cfg, device="cuda")
+            t.train(2)
+            runs.append((t, cuda_conv_stats.launches))
+        (plain, n_plain), (mesh, n_mesh) = runs
+        assert mesh.mesh is not None and mesh._fuse_mode == "on"
+        assert n_plain == n_mesh == 9 * 2
+        a, b = plain.state.state_dict(), mesh.state.state_dict()
+        for part in ("g", "d"):
+            for k, v in a[part].items():
+                assert torch.equal(v, b[part][k]), f"{part}.{k}"
+    finally:
+        torch.backends.cudnn.deterministic = det
+        multihost.shutdown()

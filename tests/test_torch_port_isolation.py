@@ -39,7 +39,11 @@ def test_package_imports_without_jax():
             "tpugan_torch.ops.cuda_conv_stats, "
             "tpugan_torch.losses.adversarial, tpugan_torch.cli, "
             "tpugan_torch.export, tpugan_torch.ckpt.torch_import, "
-            "tpugan_torch.ckpt.torch_export, tpugan_torch.utils.profiling; "
+            "tpugan_torch.ckpt.torch_export, tpugan_torch.utils.profiling, "
+            "tpugan_torch.parallel, tpugan_torch.parallel.multihost, "
+            "tpugan_torch.parallel.mesh, tpugan_torch.parallel.collectives, "
+            "tpugan_torch.parallel.fsdp, tpugan_torch.parallel.spatial, "
+            "tpugan_torch.parallel.inference; "
             "assert 'jax' not in [m.split('.')[0] for m in sys.modules "
             "if sys.modules[m] is not None]")
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,

@@ -4,9 +4,10 @@ the synthetic dataset, with fuse_stats on and off, ``train(2)`` of the
 conditional preset on the dataset's labels, and the fast preset (FusedProp,
 resident data, steps a call); ``eval_every`` and ``keep_best`` log the JAX
 trainer's FID and bank its watermark, which a resumed run keeps; the input
-pipeline yields the JAX pipeline's batches; options the port does not take
-raise, and so does conditional training on labels that are all zero; the
-options ported since train, the dataset files among them."""
+pipeline yields the JAX pipeline's batches; a mesh larger than the ranks
+running is refused, and so is conditional training on labels that are
+all zero; the options ported since train, the dataset files among
+them."""
 
 import gzip
 import json
@@ -195,15 +196,19 @@ def test_pipeline_yields_the_jax_pipelines_batches():
 
 
 @pytest.mark.parametrize("override,match", [
-    ({"train.mesh_shape": 2}, "mesh_shape"),
-    ({"train.spatial_shards": 2}, "spatial_shards"),
-    ({"train.fsdp_shards": 2}, "fsdp_shards"),
+    ({"train.mesh_shape": 2}, "only 1 rank"),
+    ({"train.spatial_shards": 2}, "spatial_shards=2 but only 1 rank"),
+    ({"train.fsdp_shards": 2}, "needs 2 ranks, but only 1"),
 ])
 def test_unported_options_raise(tmp_path, override, match):
+    """A mesh larger than the ranks running is refused, as the JAX
+    package refuses a mesh larger than its devices (make_mesh,
+    make_mesh_2d, the Trainer's spatial_shards check): one process here,
+    no process group."""
     cfg = port_preset("dcgan_cifar10").override(
         {**TINY, "train.out_dir": str(tmp_path / "out"),
          "train.ckpt_dir": str(tmp_path / "ckpt"), **override})
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(ValueError, match=match):
         Trainer(cfg, device="cpu").train(1)
 
 

@@ -13,8 +13,11 @@ single-device training of every preset from the dataset files (MNIST,
 CIFAR-10, CelebA in RAM or streaming) or the synthetic set, with the whole
 training state (EMA, LR schedule, checkpoints and exact resume), the step
 options (FusedProp, grad_accum, steps_per_call, remat, a device-resident
-dataset), DiffAugment and ADA, and in-training FID / KID / IS with
-``keep_best`` (``eval/``).
+dataset), DiffAugment and ADA, in-training FID / KID / IS with
+``keep_best`` (``eval/``), the command line, the exported generator, and
+meshes of ranks over ``torch.distributed`` (``parallel/``: data parallel
+with global-batch BatchNorm, FSDP, spatial halo convs, the multi-process
+bootstrap and sharded serving).
 """
 
 __version__ = "0.1.0"

@@ -20,6 +20,11 @@ beside them as ``config.json``, also atomically.
 
 Saves are synchronous (the JAX package's orbax saves overlap training);
 ``wait`` and ``close`` are kept for the same surface.
+
+Under ``torch.distributed`` every rank calls ``save`` with the same state
+(an FSDP state's ``state_dict()`` has already gathered its shards): the
+first rank writes, then all meet at a barrier, so no rank reads or resumes
+from a file still being written.  ``restore`` reads on every rank.
 """
 
 from __future__ import annotations
@@ -29,6 +34,7 @@ import re
 from typing import List, Optional
 
 import torch
+import torch.distributed as dist
 
 _NAME = re.compile(r"^(\d+)\.pt$")
 
@@ -64,16 +70,21 @@ class CheckpointManager:
 
     def save(self, step: int, state: dict, config_json: str = "") -> None:
         """Write ``state`` (a ``TrainState.state_dict()``) as ``step``,
-        then drop all but the newest ``max_to_keep`` steps."""
-        atomic_write(self.path(step), lambda p: torch.save(state, p))
-        for old in self.all_steps()[:-self.max_to_keep]:
-            os.remove(self.path(old))
-        if config_json:
-            def write(p):
-                with open(p, "w") as f:
-                    f.write(config_json)
+        then drop all but the newest ``max_to_keep`` steps (the first rank
+        writes; every rank waits for it)."""
+        if not dist.is_initialized() or dist.get_rank() == 0:
+            atomic_write(self.path(step), lambda p: torch.save(state, p))
+            for old in self.all_steps()[:-self.max_to_keep]:
+                os.remove(self.path(old))
+            if config_json:
+                def write(p):
+                    with open(p, "w") as f:
+                        f.write(config_json)
 
-            atomic_write(os.path.join(self.directory, "config.json"), write)
+                atomic_write(os.path.join(self.directory, "config.json"),
+                             write)
+        if dist.is_initialized():
+            dist.barrier()
 
     def restore(self, step: Optional[int] = None, map_location=None) -> dict:
         """The saved state of ``step`` (default: the latest), its tensors

@@ -9,9 +9,19 @@ generator in memory and serves the loaded artifact, so a checkpoint and an
 the artifact's generator runs kernel 1 (the op
 ``tpugan_torch::convt_affine_act``) once a GBlock.
 
+Meshes (``parallel/``): ``train`` with ``train.mesh_shape``,
+``train.fsdp_shards`` or ``train.spatial_shards`` runs one process per
+rank: under ``torchrun`` the launcher's ranks, otherwise this command
+spawns them (``parallel.multihost.spawn``), as many as the mesh needs
+(``mesh_shape`` x the second axis; ``fsdp_shards`` alone takes every card
+it divides).  ``sample`` and ``eval`` of a ``spatial_shards`` checkpoint
+spawn that many ranks; ``serve --shards N --ckpt`` spawns N, the first of
+which serves HTTP over a ``ShardedSampler``.  CUDA ranks take one card
+each over NCCL; ``--backend gloo`` puts several on one card, and ``--device
+cpu`` runs gloo ranks on the CPU.  The first rank prints and writes.
+
 Not ported yet, and raising ``NotImplementedError`` with the ROADMAP.md
-item that will port them: ``serve --shards`` and ``train`` with a mesh
-(**Parallel**), and ``bench`` (**Benchmark**: ``bench.py`` is the JAX
+item that will port it: ``bench`` (**Benchmark**: ``bench.py`` is the JAX
 package's benchmark).
 
 Examples
@@ -24,6 +34,9 @@ Examples
   python -m tpugan_torch.cli export --ckpt runs/g/ckpt --out g.tpugan
   python -m tpugan_torch.cli serve --model g.tpugan --port 8000
   python -m tpugan_torch.cli --device cpu eval --ckpt runs/g/ckpt
+  python -m tpugan_torch.cli train dcgan_celeba64 --set train.mesh_shape=2
+  python -m tpugan_torch.cli --backend gloo serve --ckpt runs/g/ckpt \
+      --shards 2
 """
 
 from __future__ import annotations
@@ -98,6 +111,59 @@ def cmd_presets(args):
               f"{cfg.loss.kind:8s} dataset={cfg.data.dataset}")
 
 
+def _mesh_world(cfg, device) -> int:
+    """The ranks a config's mesh needs (0: no mesh), as the JAX trainer
+    sizes it."""
+    t = cfg.train
+    if t.spatial_shards > 0:
+        return (t.mesh_shape or 1) * t.spatial_shards
+    if t.fsdp_shards > 0:
+        import torch
+
+        cards = (torch.cuda.device_count()
+                 if torch.device(device).type == "cuda" else 1)
+        return (t.mesh_shape or max(cards // t.fsdp_shards, 1)) \
+            * t.fsdp_shards
+    return t.mesh_shape or 0
+
+
+def _launched() -> bool:
+    """Whether a launcher (``torchrun``) started this process as a rank."""
+    return "RANK" in os.environ and "WORLD_SIZE" in os.environ
+
+
+def _on_ranks(args, fn, world, *fn_args):
+    """``fn(rank, *fn_args)`` on ``world`` spawned ranks (the first rank's
+    result), or in this process when a launcher made it a rank."""
+    from tpugan_torch.parallel import multihost
+
+    backend = args.backend or None
+    if _launched():
+        rank = multihost.initialize_multihost(autodetect=True,
+                                              backend=backend,
+                                              device=args.device)
+        try:
+            return fn(rank, *fn_args)
+        finally:
+            multihost.shutdown()
+    if args.device.startswith("cuda"):
+        # build the kernel libraries once here, not in every rank at once
+        from tpugan_torch.ops import _build
+
+        _build.build_all()
+    return multihost.spawn(fn, world, fn_args, backend=backend,
+                           device=args.device)[0]
+
+
+def _train_rank(rank, cfg, device):
+    from tpugan_torch.train.trainer import Trainer
+
+    metrics = Trainer(cfg, device=device).train()
+    if rank == 0:
+        print(json.dumps({"final": metrics}), flush=True)
+    return metrics
+
+
 def cmd_train(args):
     from tpugan_torch.configs import get_preset
     from tpugan_torch.train.trainer import Trainer
@@ -111,19 +177,42 @@ def cmd_train(args):
         cfg = dataclasses.replace(cfg, train=dataclasses.replace(
             cfg.train, resume=args.resume))
     print(cfg.to_json())
-    # a mesh (mesh_shape, fsdp_shards, spatial_shards) raises in the
-    # Trainer, naming 'Parallel'
+    world = _mesh_world(cfg, args.device)
+    if world or _launched():
+        _on_ranks(args, _train_rank, world, cfg, args.device)
+        return
     metrics = Trainer(cfg, device=args.device).train()
     print(json.dumps({"final": metrics}))
 
 
-def cmd_sample(args):
+def _spatial_world(args) -> int:
+    return _load_cfg_for_ckpt(args.ckpt).train.spatial_shards
+
+
+def _rank_device(device):
+    from tpugan_torch.parallel import multihost
+
+    return multihost.rank_device(device)
+
+
+def _sample_rank(rank, args):
+    cmd_sample(args, device=_rank_device(args.device), write=rank == 0)
+
+
+def cmd_sample(args, device=None, write=True):
     from tpugan_torch.sample.sampler import Sampler
     from tpugan_torch.utils.images import make_grid, save_png, to_uint8
 
-    cfg, g, step = _load_generator_from_ckpt(args.ckpt, args.device)
+    if device is None and _spatial_world(args) > 0:
+        # a spatially sharded model samples on its mesh of ranks
+        _on_ranks(args, _sample_rank, _spatial_world(args), args)
+        return
+    cfg, g, step = _load_generator_from_ckpt(args.ckpt, device or
+                                             args.device)
     imgs = Sampler(cfg, g).sample(args.n, seed=args.seed,
                                   batch_size=args.batch_size or args.n)
+    if not write:
+        return
     if args.outdir:
         # one PNG per image (the two-folder eval workflow: sample --outdir
         # then `fid <outdir> <real dir>`)
@@ -139,14 +228,23 @@ def cmd_sample(args):
           f"step {step})")
 
 
-def cmd_eval(args):
+def _eval_rank(rank, args):
+    cmd_eval(args, device=_rank_device(args.device), write=rank == 0)
+
+
+def cmd_eval(args, device=None, write=True):
     from tpugan_torch.eval.evaluate import evaluate
 
-    cfg, g, _ = _load_generator_from_ckpt(args.ckpt, args.device)
+    if device is None and _spatial_world(args) > 0:
+        _on_ranks(args, _eval_rank, _spatial_world(args), args)
+        return
+    cfg, g, _ = _load_generator_from_ckpt(args.ckpt, device or args.device)
     if args.fid_n:
         cfg = dataclasses.replace(cfg, eval=dataclasses.replace(
             cfg.eval, fid_n=args.fid_n))
-    print(json.dumps(evaluate(cfg, g, seed=args.seed)))
+    scores = evaluate(cfg, g, seed=args.seed)
+    if write:
+        print(json.dumps(scores))
 
 
 def cmd_export(args):
@@ -164,12 +262,49 @@ def cmd_export(args):
           f"kernels={cfg.train.kernels})")
 
 
+def _engine(gen, args) -> BatchingEngine:
+    return BatchingEngine(gen, max_batch=args.max_batch,
+                          linger_ms=args.linger_ms,
+                          queue_depth=args.queue_depth,
+                          request_timeout_s=args.request_timeout_s)
+
+
+def _serve_rank(rank, args):
+    """One rank of ``serve --shards``: the first serves HTTP over the
+    ShardedSampler, the others answer its generate rounds until it closes
+    (they ignore SIGTERM / SIGINT: the first rank's shutdown releases
+    them)."""
+    import signal
+
+    from tpugan_torch.parallel import ShardedSampler, make_mesh
+
+    device = _rank_device(args.device)
+    cfg, g, _ = _load_generator_from_ckpt(args.ckpt, device)
+    sampler = ShardedSampler(cfg, g, make_mesh(args.shards, device.type))
+    if rank != 0:
+        for s in (signal.SIGTERM, signal.SIGINT):
+            signal.signal(s, signal.SIG_IGN)
+        sampler.serve()
+        return None
+    try:
+        serve_forever(_engine(sampler, args), host=args.host, port=args.port)
+    finally:
+        sampler.close()
+    return None
+
+
 def cmd_serve(args):
     from tpugan_torch.export import export_generator, load_generator
 
     if args.shards:
-        raise _not_ported("serve --shards (one endpoint over a multi-card "
-                          "mesh)", "Parallel")
+        if args.model:
+            raise SystemExit(
+                "--shards needs --ckpt (an exported artifact is one "
+                "program; the mesh serves the checkpoint's generator)")
+        if not args.ckpt:
+            raise SystemExit("serve needs --model or --ckpt")
+        _on_ranks(args, _serve_rank, args.shards, args)
+        return
     if args.model:
         gen = load_generator(args.model, device=args.device)
     else:
@@ -179,11 +314,7 @@ def cmd_serve(args):
         # baked in) so the serving path is the artifact's either way
         cfg, g, _ = _load_generator_from_ckpt(args.ckpt, args.device)
         gen = load_generator(export_generator(cfg, g), device=args.device)
-    engine = BatchingEngine(gen, max_batch=args.max_batch,
-                            linger_ms=args.linger_ms,
-                            queue_depth=args.queue_depth,
-                            request_timeout_s=args.request_timeout_s)
-    serve_forever(engine, host=args.host, port=args.port)
+    serve_forever(_engine(gen, args), host=args.host, port=args.port)
 
 
 def cmd_profile(args):
@@ -407,6 +538,9 @@ def main(argv=None):
     ap = argparse.ArgumentParser(prog="tpugan-torch")
     ap.add_argument("--device", default="cuda",
                     help="device to run on (default cuda; cpu for the CPU)")
+    ap.add_argument("--backend", default="", choices=["", "nccl", "gloo"],
+                    help="process group backend of a mesh (default: NCCL "
+                         "for CUDA, gloo for the CPU; gloo shares cards)")
     sub = ap.add_subparsers(dest="cmd", required=True)
 
     sub.add_parser("presets", help="list named configs")
@@ -454,8 +588,8 @@ def main(argv=None):
                    help="pending-request cap; overflow sheds with 503")
     p.add_argument("--request-timeout-s", type=float, default=120.0)
     p.add_argument("--shards", type=int, default=0,
-                   help="serve one endpoint over an N-card mesh (not "
-                        "ported yet)")
+                   help="serve one endpoint over an N-rank mesh (needs "
+                        "--ckpt)")
 
     sub.add_parser("bench", help="throughput benchmark (not ported yet)")
 

@@ -12,6 +12,9 @@
   batches, and ``start_step`` resumes the stream where a run left off.
 - ``stack`` K > 1 yields K batches stacked on a leading axis, for a train
   step that runs K steps a call (``train.steps_per_call``).
+- ``rows`` (under a data mesh, ``parallel/multihost.local_rows``): every
+  rank draws the global batch's indices and gathers and decodes only its
+  own rows of them.
 """
 
 from __future__ import annotations
@@ -35,7 +38,7 @@ class make_input_pipeline:
 
     def __init__(self, data: Dict[str, np.ndarray], batch_size: int, *,
                  seed: int = 0, with_labels: bool = True, device="cuda",
-                 start_step: int = 0, stack: int = 1):
+                 start_step: int = 0, stack: int = 1, rows=None):
         self.images = data["images"]
         self.labels = data.get("labels") if with_labels else None
         self.batch_size = batch_size
@@ -47,6 +50,7 @@ class make_input_pipeline:
         self.steps_per_epoch = n // batch_size  # the last partial batch drops
         self.start_step = int(start_step)
         self.stack = max(stack, 1)
+        self.rows = rows
 
     def _host_batches(self) -> Iterator[Dict[str, np.ndarray]]:
         epoch, s0 = divmod(self.start_step, self.steps_per_epoch)
@@ -56,6 +60,8 @@ class make_input_pipeline:
                 np.random.SeedSequence([self.seed, epoch])).permutation(n)
             for s in range(s0, self.steps_per_epoch):
                 idx = order[s * self.batch_size:(s + 1) * self.batch_size]
+                if self.rows is not None:
+                    idx = idx[self.rows]
                 if hasattr(self.images, "gather"):  # streaming folder
                     batch = {"image": self.images.gather(idx)}
                 else:

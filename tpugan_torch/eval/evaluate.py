@@ -12,6 +12,10 @@ loaded from the config), ``"stream"`` (a streaming folder, keyed on its
 no decode) and ``"passed"`` (an in-RAM array, keyed on a fingerprint of
 its bytes).
 
+Under ``train.spatial_shards`` the generation is collective (every rank of
+the spatial mesh calls ``evaluate``; ``sample/sampler.py``), and the first
+rank alone extracts the features and scores: the others return None.
+
 ``evaluate_folders(a, b)`` scores two image folders against each other
 (the ``pytorch-fid path_a path_b`` workflow), generator-free.
 """
@@ -29,6 +33,7 @@ from tpugan_torch.data.datasets import load_dataset, load_image_folder
 from tpugan_torch.eval.features import make_extractor
 from tpugan_torch.eval.fid import (fid_from_features, inception_score,
                                    kid_from_features, prdc_from_features)
+from tpugan_torch.parallel.multihost import is_main_process
 from tpugan_torch.sample.sampler import Sampler
 from tpugan_torch.utils.cache import BoundedCache
 
@@ -48,17 +53,20 @@ def _array_fingerprint(a: np.ndarray) -> tuple:
 
 
 def evaluate(cfg: Config, g: torch.nn.Module, *, seed: int = 0,
-             real_images=None) -> Dict[str, float]:
+             real_images=None) -> Optional[Dict[str, float]]:
     """FID, KID and IS (and PRDC under ``eval.prdc``) of generator module
     ``g`` against ``real_images`` (uint8 or [-1, 1] NHWC, or a streaming
-    folder; by default the config's dataset), all on ``g``'s device."""
+    folder; by default the config's dataset), all on ``g``'s device; None
+    on a rank other than the first of a spatial mesh (module docstring)."""
     device = next(g.parameters()).device
-    extractor = make_extractor(cfg.model.channels, cfg.eval.metric,
-                               cfg.eval.inception_weights, device=device)
     n = cfg.eval.fid_n
     bs = cfg.eval.fid_batch
 
     fake = Sampler(cfg, g).sample(n, seed=seed, batch_size=bs)
+    if cfg.train.spatial_shards > 0 and not is_main_process():
+        return None
+    extractor = make_extractor(cfg.model.channels, cfg.eval.metric,
+                               cfg.eval.inception_weights, device=device)
     feat_fake, probs_fake = extractor(fake, batch=bs)
 
     if real_images is None:

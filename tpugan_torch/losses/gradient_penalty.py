@@ -9,25 +9,31 @@ square root; D may run in bf16, its scores and the penalty stay fp32.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from tpugan_torch.sample import threefry
 
 
 def gradient_penalty(d_score_fn, real, fake, key=None, *,
-                     center: float = 1.0, eps: float = 1e-12, alpha=None):
+                     center: float = 1.0, eps: float = 1e-12, alpha=None,
+                     rows=None):
     """E[(|grad_x D(x_hat)|_2 - center)^2] over per-sample interpolates
     x_hat = alpha * real + (1 - alpha) * fake, in fp32.
 
     ``d_score_fn`` maps x (N, H, W, C) to scores (N,); ``real``/``fake`` are
     values (nothing flows back into them); ``key`` is the threefry key of
     alpha ~ U[0, 1) of shape (N, 1, 1, 1), the JAX draw; ``alpha`` (N values)
-    replaces that draw (the JAX step's parity hook).  Returns the penalty
-    without the lambda factor.
+    replaces that draw (the JAX step's parity hook).  Under a data mesh
+    ``rows`` is (the global batch's size, this rank's rows): alpha is drawn
+    (or given) for the global batch and kept at those rows, and the mean
+    is this rank's.  Returns the penalty without the lambda factor.
     """
     n = real.shape[0]
     if alpha is None:
-        alpha = threefry.uniform(key, (n, 1, 1, 1))
+        alpha = threefry.uniform(key, ((rows[0] if rows else n), 1, 1, 1))
+    if rows is not None:
+        alpha = np.asarray(alpha).reshape(rows[0], 1, 1, 1)[rows[1]]
     alpha = torch.as_tensor(alpha, device=real.device).float().reshape(
         n, 1, 1, 1)
     x_hat = (alpha * real.detach().float()

@@ -18,7 +18,9 @@ W / sigma (sigma from the stored ``u``), cast to the compute dtype.  These
 kernels are forward-only.  A train-mode DBlock with BatchNorm and no spectral
 norm runs ``cuda_conv_stats.conv_bn_stats`` when its own ``fuse_stats`` mode
 (``train.fuse_stats`` of the config that built it) is on: the conv and its
-batch statistics in one kernel, with a PyTorch backward.
+batch statistics in one kernel, with a PyTorch backward.  Both fused paths
+step aside while a spatial context is set (``parallel/spatial.py``): the
+sharded convs take the layer.
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ from tpugan_torch.nn.layers import (BatchNorm, Conv, ConvTranspose, Dense,
 from tpugan_torch.nn.spectral_norm import SNConv, SNDense
 from tpugan_torch.ops import convs, cuda_conv, cuda_conv_stats, cuda_convt
 from tpugan_torch.ops.fused import bn_act, bn_affine
+from tpugan_torch.parallel import spatial
 
 
 class GBlock(nn.Module):
@@ -66,7 +69,8 @@ class GBlock(nn.Module):
             act="tanh" if self.final else "relu", out_dtype=conv.dtype)
 
     def forward(self, x):
-        if not self.training and convs.resolve_impl(None) == "pallas":
+        if (not self.training and convs.resolve_impl(None) == "pallas"
+                and not spatial.spatial_active()):
             return self._fused_eval(x)
         x = self.conv(x)
         if self.bn is not None:
@@ -137,12 +141,15 @@ class DBlock(nn.Module):
             act="leaky_relu", leak=self.act.slope, out_dtype=conv.dtype)
 
     def forward(self, x):
+        # the fused kernels take whole maps: under a spatial context the
+        # convs' seam (ops/convs.py) decides, as in the JAX package
+        fusable = not spatial.spatial_active()
         if self.training:
-            if (self._fusable
+            if (fusable and self._fusable
                     and cuda_conv_stats.fuse_stats_enabled(self.fuse_stats, x)
                     and x.shape[1] % 2 == 0 and x.shape[2] % 2 == 0):
                 return self._fused_train(x)
-        elif convs.resolve_impl(None) == "pallas":
+        elif fusable and convs.resolve_impl(None) == "pallas":
             return self._fused_eval(x)
         x = self.conv(x)
         if self.bn is not None:
@@ -163,4 +170,5 @@ class DTail(nn.Module):
             generator=generator)
 
     def forward(self, x):
+        x = spatial.replicated(x)  # a spatial shard is gathered whole
         return self.dense(x.reshape(x.shape[0], -1))[:, 0]

@@ -18,6 +18,7 @@ import torch
 from torch import nn
 
 from tpugan_torch.models.blocks import DBlock, DTail, GBlock, GHead
+from tpugan_torch.parallel import spatial
 
 
 def _g_schedule(image_size: int, ngf: int) -> Tuple[int, List[int]]:
@@ -61,7 +62,8 @@ class Generator(nn.Module):
         x = self.head(z)
         for blk in self.blocks:
             x = blk(x)
-        return self.final(x)
+        # whole on every rank under a spatial context (a no-op otherwise)
+        return spatial.replicated(self.final(x))
 
 
 def _d_schedule(image_size: int, ndf: int) -> Tuple[int, List[int]]:
@@ -112,6 +114,7 @@ class Discriminator(nn.Module):
         return [getattr(self, f"block{i}") for i in range(self.n_blocks)]
 
     def forward(self, x):
+        spatial.require_whole(x)
         for blk in self.blocks:
             x = blk(x)
         return self.tail(x)

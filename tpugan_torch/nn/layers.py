@@ -18,10 +18,13 @@ running statistics as buffers updated in place (``mean``, ``var``).
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from tpugan_torch.ops import convs
 from tpugan_torch.ops.kernel_common import leaky_relu
+from tpugan_torch.parallel import collectives, spatial
+from tpugan_torch.parallel.mesh import batch_group
 from tpugan_torch.utils.device import resolve_device
 
 # Reference init idiom: conv/dense weights ~ N(0, 0.02); BN scale ~ N(1, 0.02).
@@ -60,7 +63,7 @@ class Conv(nn.Module):
         y = convs.conv2d(x.to(self.dtype), self.weight().to(self.dtype),
                          stride=self.stride, padding=self.padding)
         if self.b is not None:
-            y = y + self.b
+            y = y + spatial.feed(self.b, y)
         return y.to(self.dtype)
 
 
@@ -86,7 +89,7 @@ class ConvTranspose(nn.Module):
         y = convs.conv_transpose2d(x.to(self.dtype), self.w.to(self.dtype),
                                    stride=self.stride, padding=self.padding)
         if self.b is not None:
-            y = y + self.b
+            y = y + spatial.feed(self.b, y)
         return y.to(self.dtype)
 
 
@@ -120,7 +123,10 @@ class BatchNorm(nn.Module):
 
     Training normalizes with the biased batch variance (clamped at >= 0) and
     updates the running stats with the unbiased one, momentum 0.1; eval uses
-    the running stats.  Statistics are fp32.
+    the running stats.  Statistics are fp32.  Under a mesh the statistics
+    are the global batch's: the per-channel sums of x and x^2 are
+    all-reduced over the batch-sharded axes (not ``nn.SyncBatchNorm``:
+    this is the JAX package's E[x^2] - E[x]^2).
     """
 
     def __init__(self, num_features: int, eps: float = 1e-5,
@@ -144,20 +150,42 @@ class BatchNorm(nn.Module):
         self.mean.mul_(1 - self.momentum).add_(self.momentum * mean)
         self.var.mul_(1 - self.momentum).add_(self.momentum * unbiased)
 
+    def _global_moments(self, xf, red, groups):
+        """(E[x], E[x^2], n) over the batch shared by ``groups``: the
+        per-channel sums all-reduced in fp32 (the backward all-reduces too:
+        every rank's normalized rows depend on the global statistics); the
+        shards are equal, so the count is this rank's times the groups'
+        sizes."""
+        c = xf.shape[-1]
+        stats = torch.cat([xf.sum(dim=red), (xf * xf).sum(dim=red)])
+        n = xf.numel() // c
+        for group in groups:
+            stats = collectives.all_reduce_sum(stats, group)
+            n *= dist.get_world_size(group)
+        return stats[:c] / n, stats[c:] / n, n
+
     def forward(self, x):
         xf = x.float()
         red = tuple(range(x.dim() - 1))
+        scale, bias = spatial.feed(self.scale, x), spatial.feed(self.bias, x)
         if self.training:
-            mean = xf.mean(dim=red)
+            # under a mesh: the data axis of the step, and space when x is
+            # a spatial shard (parallel/mesh.batch_ctx, parallel/spatial)
+            groups = [g for g in [batch_group()] + spatial.bn_groups(x)
+                      if g is not None]
+            if groups:
+                mean, sq, n = self._global_moments(xf, red, groups)
+            else:
+                mean, sq = xf.mean(dim=red), (xf * xf).mean(dim=red)
+                n = xf.numel() // x.shape[-1]
             # E[x^2] - E[x]^2 can land slightly negative for near-constant
             # channels (fp32 cancellation); rsqrt would then yield NaN.
-            var = torch.clamp((xf * xf).mean(dim=red) - mean * mean, min=0.0)
-            n = xf.numel() // x.shape[-1]
+            var = torch.clamp(sq - mean * mean, min=0.0)
             self.update_running(mean.detach(), var.detach(), n)
         else:
             mean, var = self.mean, self.var
-        inv = torch.rsqrt(var + self.eps) * self.scale
-        return ((xf - mean) * inv + self.bias).to(self.dtype)
+        inv = torch.rsqrt(var + self.eps) * scale
+        return ((xf - mean) * inv + bias).to(self.dtype)
 
 
 class Embedding(nn.Module):

@@ -55,32 +55,43 @@ def _to(x: torch.Tensor, a: np.ndarray) -> torch.Tensor:
                                                         non_blocking=True)
 
 
-def _per_sample(x: torch.Tensor, key) -> np.ndarray:
+def _batch_draw(x: torch.Tensor, rows, draw) -> np.ndarray:
+    """``draw(n)`` for a batch of n samples.  Under a data mesh ``rows`` is
+    (the global batch's size, this rank's rows of it): the draw is the
+    global batch's, kept at those rows, as the JAX step draws it."""
+    if rows is None:
+        return draw(x.shape[0])
+    n, idx = rows
+    return draw(n)[idx]
+
+
+def _per_sample(x: torch.Tensor, key, rows=None) -> np.ndarray:
     """U[0, 1) float32, one per sample: (N, 1, 1, 1)."""
-    return threefry.uniform(key, (x.shape[0], 1, 1, 1))
+    return _batch_draw(x, rows,
+                       lambda n: threefry.uniform(key, (n, 1, 1, 1)))
 
 
-def rand_brightness(x: torch.Tensor, key) -> torch.Tensor:
+def rand_brightness(x: torch.Tensor, key, rows=None) -> torch.Tensor:
     """x + U[-0.5, 0.5) per sample."""
-    u = _per_sample(x, key) - np.float32(0.5)
+    u = _per_sample(x, key, rows) - np.float32(0.5)
     return x + _to(x, u).to(x.dtype)
 
 
-def rand_saturation(x: torch.Tensor, key) -> torch.Tensor:
+def rand_saturation(x: torch.Tensor, key, rows=None) -> torch.Tensor:
     """(x - mean_c) * U[0, 2) + mean_c: channel-mean-preserving."""
-    u = _to(x, _per_sample(x, key) * np.float32(2.0)).to(x.dtype)
+    u = _to(x, _per_sample(x, key, rows) * np.float32(2.0)).to(x.dtype)
     mean = x.mean(dim=-1, keepdim=True)
     return (x - mean) * u + mean
 
 
-def rand_contrast(x: torch.Tensor, key) -> torch.Tensor:
+def rand_contrast(x: torch.Tensor, key, rows=None) -> torch.Tensor:
     """(x - mean_hwc) * U[0.5, 1.5) + mean_hwc: image-mean-preserving."""
-    u = _to(x, _per_sample(x, key) + np.float32(0.5)).to(x.dtype)
+    u = _to(x, _per_sample(x, key, rows) + np.float32(0.5)).to(x.dtype)
     mean = x.mean(dim=(1, 2, 3), keepdim=True)
     return (x - mean) * u + mean
 
 
-def rand_translation(x: torch.Tensor, key,
+def rand_translation(x: torch.Tensor, key, rows=None,
                      ratio: float = 0.125) -> torch.Tensor:
     """Shift each sample by integer offsets in [-round(H*ratio),
     +round(H*ratio)] (per axis, per sample), zero-filling the exposed
@@ -95,8 +106,10 @@ def rand_translation(x: torch.Tensor, key,
     n, h, w, _ = x.shape
     sh, sw = int(h * ratio + 0.5), int(w * ratio + 0.5)
     kh, kw = threefry.split(key, 2)
-    th = _to(x, threefry.randint(kh, -sh, sh + 1, (n, 1, 1)).reshape(n, 1))
-    tw = _to(x, threefry.randint(kw, -sw, sw + 1, (n, 1, 1)).reshape(n, 1))
+    th = _to(x, _batch_draw(x, rows, lambda m: threefry.randint(
+        kh, -sh, sh + 1, (m, 1, 1))).reshape(n, 1))
+    tw = _to(x, _batch_draw(x, rows, lambda m: threefry.randint(
+        kw, -sw, sw + 1, (m, 1, 1))).reshape(n, 1))
     dev = x.device
     rows = torch.arange(h, device=dev)[None, :] + th.long() + sh  # (N, H)
     cols = torch.arange(w, device=dev)[None, :] + tw.long() + sw  # (N, W)
@@ -105,15 +118,18 @@ def rand_translation(x: torch.Tensor, key,
     return xp[batch, rows[:, :, None], cols[:, None, :]]
 
 
-def rand_cutout(x: torch.Tensor, key, ratio: float = 0.5) -> torch.Tensor:
+def rand_cutout(x: torch.Tensor, key, rows=None,
+                ratio: float = 0.5) -> torch.Tensor:
     """Zero an (H*ratio, W*ratio) window centered at a uniform position,
     clipped at the borders (the DiffAugment reference's clamped scatter),
     as a mask multiply."""
     n, h, w, _ = x.shape
     ch, cw = int(h * ratio + 0.5), int(w * ratio + 0.5)
     kh, kw = threefry.split(key, 2)
-    oy = threefry.randint(kh, 0, h + (1 - ch % 2), (n, 1, 1))
-    ox = threefry.randint(kw, 0, w + (1 - cw % 2), (n, 1, 1))
+    oy = _batch_draw(x, rows, lambda m: threefry.randint(
+        kh, 0, h + (1 - ch % 2), (m, 1, 1)))
+    ox = _batch_draw(x, rows, lambda m: threefry.randint(
+        kw, 0, w + (1 - cw % 2), (m, 1, 1)))
     y0 = _to(x, oy - ch // 2)
     x0 = _to(x, ox - cw // 2)
     yy = torch.arange(h, device=x.device)[None, :, None]
@@ -145,23 +161,27 @@ def parse_policy(spec: str) -> tuple[str, ...]:
 
 
 def apply_policy(x: torch.Tensor, key, policy: Sequence[str],
-                 p=1.0) -> torch.Tensor:
+                 p=1.0, rows=None) -> torch.Tensor:
     """Run the policy's ops on a batch, each gated per sample at
     probability ``p``: a Python float, or a float32 tensor (ADA's ``p``).
     Each op takes ``key, k_op, k_gate = split(key, 3)`` in the policy's
-    order; a Python ``p >= 1`` skips the gates."""
+    order; a Python ``p >= 1`` skips the gates.  ``rows`` (global size,
+    this rank's rows) draws for the global batch under a data mesh."""
     always_on = isinstance(p, (int, float)) and p >= 1.0
     for name in policy:
         for op in _POLICY_OPS[name]:
             key, k_op, k_gate = threefry.split(key, 3)
-            ax = op(x, k_op)
+            ax = op(x, k_op, rows)
             if always_on:
                 x = ax
                 continue
-            shape = (x.shape[0], 1, 1, 1)
             if torch.is_tensor(p):  # compared on p's device
-                gate = _to(x, threefry.uniform(k_gate, shape)) < p
+                gate = _to(x, _batch_draw(x, rows, lambda n, k=k_gate:
+                                          threefry.uniform(k, (n, 1, 1, 1))
+                                          )) < p
             else:
-                gate = _to(x, threefry.bernoulli(k_gate, p, shape))
+                gate = _to(x, _batch_draw(x, rows, lambda n, k=k_gate:
+                                          threefry.bernoulli(k, p,
+                                                             (n, 1, 1, 1))))
             x = torch.where(gate, ax, x)
     return x

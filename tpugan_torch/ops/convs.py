@@ -10,6 +10,11 @@ XLA); impl "pallas" runs the hand-written kernels of ``ops/cuda_conv.py`` /
 JAX package there is no quiet fallback: "pallas" on a shape a kernel does
 not take raises.  The kernels are forward-only, so the train step runs its
 forwards under ``using_impl("xla")``, whatever the default is.
+
+Ahead of the impl, both ops consult the spatial context
+(``parallel/spatial.py``), as the JAX package's do: a qualifying conv runs
+sharded with a halo exchange, and a map the context shards but this conv
+does not is gathered whole first.
 """
 
 from __future__ import annotations
@@ -54,6 +59,12 @@ def resolve_impl(impl: str | None) -> str:
 def conv2d(x, w, *, stride: int, padding: int, impl: str | None = None):
     """Strided conv: x (N, H, W, Cin), w (kh, kw, Cin, Cout); returns
     (N, H', W', Cout) in x's dtype."""
+    from tpugan_torch.parallel import spatial
+
+    y = spatial.maybe_spatial_conv2d(x, w, stride=stride, padding=padding)
+    if y is not None:
+        return y
+    x = spatial.replicated(x)
     if resolve_impl(impl) == "pallas":
         if stride != 2 or padding != 1 or tuple(w.shape[:2]) != (4, 4):
             raise ValueError(
@@ -72,9 +83,16 @@ def conv_transpose2d(x, w, *, stride: int, padding: int,
     """Transpose conv: x (N, H, W, Cin), w (k, k, Cin, Cout) unflipped;
     returns (N, H', W', Cout) in x's dtype, H' = (H-1)*stride - 2*padding + k.
     """
+    from tpugan_torch.parallel import spatial
+
     k = w.shape[0]
     if k - 1 - padding < 0:
         raise ValueError("require kernel - 1 - padding >= 0")
+    y = spatial.maybe_spatial_conv_transpose2d(x, w, stride=stride,
+                                               padding=padding)
+    if y is not None:
+        return y
+    x = spatial.replicated(x)
     if resolve_impl(impl) == "pallas":
         if stride != 2 or padding != 1 or tuple(w.shape[:2]) != (4, 4):
             raise ValueError(

@@ -23,6 +23,14 @@ the generator's parameters and buffers stay in the same storage (an
 in-place ``load_state_dict`` keeps it), drops them all when any moves
 (``g.to``, ``load_state_dict(..., assign=True)``, a reassigned
 parameter), and ``clear_graphs()`` frees their memory pools.
+
+Under ``train.spatial_shards`` > 0 (a model whose maps are sharded to
+fit), generation runs the module's eval forward inside the spatial
+context (``parallel/spatial.py``), ahead of the megakernels: on the
+Trainer's mesh when its context is set, else on a ``("space",)`` mesh of
+the first ``spatial_shards`` ranks, which every rank builds and then
+generates with (a collective; too few ranks raise).  The image comes back
+whole on every rank.
 """
 
 from __future__ import annotations
@@ -36,6 +44,7 @@ import torch
 
 from tpugan_torch.configs import Config
 from tpugan_torch.ops import cuda_gen2
+from tpugan_torch.parallel import multihost, spatial
 from tpugan_torch.sample import threefry
 from tpugan_torch.utils.images import make_grid, save_png, to_uint8
 
@@ -55,6 +64,27 @@ def seeded_labels(n_classes: int, n: int, seed: int,
     root = threefry.fold_in(threefry.prng_key(seed), 0x1ABE1)
     keys = threefry.fold_in(root, np.arange(offset, offset + n))
     return threefry.randint(keys, 0, n_classes)
+
+
+def _spatial_mesh(cfg: Config, device: torch.device):
+    """(mesh, axis, dim) a spatial config generates on, or None."""
+    n = cfg.train.spatial_shards
+    if n <= 0:
+        return None
+    mesh, axis, dim = spatial.current()
+    if mesh is not None:  # the Trainer's
+        return mesh, axis, dim
+    if multihost.world_size() < n:
+        raise ValueError(
+            f"train.spatial_shards={n} but only {multihost.world_size()} "
+            f"rank(s) are running: a silently smaller mesh would change the "
+            f"sharding (and can run out of memory on a model that needs "
+            f"the full split)")
+    if n == 1 and multihost.world_size() == 1:
+        return None  # one shard is the dense forward
+    from tpugan_torch.parallel.mesh import build_mesh
+
+    return build_mesh((n,), ("space",), device.type), "space", 1
 
 
 class Sampler:
@@ -77,6 +107,7 @@ class Sampler:
         self.channels = cfg.model.channels
         self.g = g
         self.device = next(g.parameters()).device
+        self._spatial = _spatial_mesh(cfg, self.device)
         # (batch size, unroll) -> the captured unrolled forward ("xla", card),
         # valid for the weight storage in _graphs_weights
         self._graphs: Dict[Tuple[int, int], _UnrolledGraph] = {}
@@ -101,6 +132,11 @@ class Sampler:
 
     def _forward(self, z, y):
         """The eval-mode image, float32, on the device."""
+        if self._spatial is not None:
+            mesh, axis, dim = self._spatial
+            with spatial.spatial_ctx(mesh, axis=axis, dim=dim):
+                return (self.g(z, y) if self.conditional
+                        else self.g(z)).float()
         if self.kernels == "pallas":
             return cuda_gen2.generator_forward(self.g, z, y)
         return (self.g(z, y) if self.conditional else self.g(z)).float()
@@ -158,7 +194,9 @@ class Sampler:
         sequentially, as the JAX package does.
         """
         bs = batch_size or n
-        u = max(1, int(unroll))
+        # a graph replay holds no collective: spatial generates batch by
+        # batch
+        u = 1 if self._spatial is not None else max(1, int(unroll))
         if u > 1 and self.kernels == "pallas":
             warnings.warn("sample(unroll>1) applies to the xla sample path "
                           "only; generating sequentially")

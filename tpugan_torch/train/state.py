@@ -21,7 +21,12 @@ the param groups before each update.  ``torch.optim.lr_scheduler`` is not
 used: its count is a second counter, outside the optimizer's state.
 
 ``state_dict()`` / ``load_state_dict()`` hold everything an exact resume
-needs (``ckpt/checkpoint.py`` saves them).
+needs (``ckpt/checkpoint.py`` saves them).  Under FSDP (``fsdp`` set by
+``parallel/fsdp.shard_train_state_fsdp``) the modules and the optimizers'
+moments hold shards: ``state_dict()`` gathers them (a collective: every
+rank calls it) into the dense layout, and ``load_state_dict()`` takes the
+dense layout and keeps this rank's shards, so a checkpoint is the same
+under any mesh.
 """
 
 from __future__ import annotations
@@ -53,19 +58,35 @@ class TrainState:
     # p and the running estimate of r_t = E[sign(D(real))]
     ada_p: Optional[torch.Tensor] = None
     ada_rt: Optional[torch.Tensor] = None
+    # parameters and moments sharded over a mesh's 'model' axis
+    fsdp: bool = False
 
     def state_dict(self) -> dict:
         """Modules, optimizers, key, step and ADA's state, as
         ``torch.load`` takes back with ``weights_only=True`` (the key as two
         ints)."""
+        if self.fsdp:
+            from tpugan_torch.parallel import fsdp
+
+            module_sd, ema_params = fsdp.full_state_dict, fsdp.full_parameters
+            opt_sd = fsdp.full_optimizer_state_dict
+        else:
+            def module_sd(m):
+                return m.state_dict()
+
+            def ema_params(m):
+                return {k: p.detach() for k, p in m.named_parameters()}
+
+            def opt_sd(opt, m):
+                return opt.state_dict()
         return {
             "step": int(self.step), "rng": [int(v) for v in self.rng],
-            "g": self.g.state_dict(), "d": self.d.state_dict(),
-            "opt_g": self.opt_g.state_dict(),
-            "opt_d": self.opt_d.state_dict(),
+            "g": module_sd(self.g), "d": module_sd(self.d),
+            "opt_g": opt_sd(self.opt_g, self.g),
+            "opt_d": opt_sd(self.opt_d, self.d),
             # the EMA's parameters: its buffers are G's (sync_ema_buffers)
-            "g_ema": (None if self.g_ema is None else {
-                k: p.detach() for k, p in self.g_ema.named_parameters()}),
+            "g_ema": (None if self.g_ema is None else
+                      ema_params(self.g_ema)),
             "ada_p": self.ada_p, "ada_rt": self.ada_rt,
         }
 
@@ -80,18 +101,34 @@ class TrainState:
             raise ValueError(
                 "the checkpoint's ADA state and this state's disagree "
                 "(train.ada_target must be nonzero in both or in neither)")
-        self.g.load_state_dict(sd["g"])
-        self.d.load_state_dict(sd["d"])
+        if self.fsdp:
+            from tpugan_torch.parallel import fsdp
+
+            load_module = fsdp.load_full_state_dict
+
+            def load_opt(opt, m, osd):
+                fsdp.load_full_optimizer_state_dict(opt, m, osd)
+        else:
+            def load_module(m, msd, params_only=False):
+                if not params_only:
+                    return m.load_state_dict(msd)
+                with torch.no_grad():
+                    for k, p in m.named_parameters():
+                        p.copy_(msd[k])
+
+            def load_opt(opt, m, osd):
+                opt.load_state_dict(osd)
+        load_module(self.g, sd["g"])
+        load_module(self.d, sd["d"])
         if self.g_ema is not None:
             params = dict(self.g_ema.named_parameters())
             if sorted(params) != sorted(sd["g_ema"]):
                 raise KeyError(f"EMA keys {sorted(sd['g_ema'])} are not G's "
                                f"parameters {sorted(params)}")
-            with torch.no_grad():
-                for k, p in params.items():
-                    p.copy_(sd["g_ema"][k])
-        for opt, key in ((self.opt_g, "opt_g"), (self.opt_d, "opt_d")):
-            opt.load_state_dict(sd[key])
+            load_module(self.g_ema, sd["g_ema"], params_only=True)
+        for opt, m, key in ((self.opt_g, self.g, "opt_g"),
+                            (self.opt_d, self.d, "opt_d")):
+            load_opt(opt, m, sd[key])
             # torch.optim keeps a non-capturable count on the CPU, wherever
             # the checkpoint was mapped to
             for st in opt.state.values():

@@ -94,6 +94,7 @@ from typing import Callable, Dict, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
@@ -103,6 +104,10 @@ from tpugan_torch.losses.adversarial import (d_loss_fake_fn, d_loss_fn,
 from tpugan_torch.losses.gradient_penalty import gradient_penalty
 from tpugan_torch.ops import convs
 from tpugan_torch.ops.augment import apply_policy, parse_policy
+from tpugan_torch.parallel import collectives
+from tpugan_torch.parallel.mesh import (axis_group, axis_index, axis_size,
+                                        batch_ctx)
+from tpugan_torch.parallel.multihost import local_rows
 from tpugan_torch.sample import threefry
 from tpugan_torch.train.state import (TrainState, ema_update, make_schedules,
                                       set_lr)
@@ -222,7 +227,7 @@ def _set_grads(params, grads) -> None:
         p.grad = gr
 
 
-def build_train_step(cfg: Config, g: nn.Module, d: nn.Module
+def build_train_step(cfg: Config, g: nn.Module, d: nn.Module, mesh=None
                      ) -> Callable[[TrainState, Dict], Tuple[TrainState,
                                                              Dict]]:
     """Return the train step for (cfg, g, d): ``step(state, batch) ->
@@ -230,8 +235,27 @@ def build_train_step(cfg: Config, g: nn.Module, d: nn.Module
     batch is ``{"image": (N, S, S, C) uint8 or float, "label": (N,) int}``
     on the modules' device (a leading K axis when K > 1), or the resident
     ``{"dataset_images", "dataset_labels"}``; metrics are 0-dim tensors
-    left on the device."""
+    left on the device.
+
+    ``mesh`` (``parallel/``) with a ``data`` axis of n > 1 ranks: the
+    batch is this rank's rows of the global one (``local_rows``), and the
+    step computes the single program's numbers: every draw is the global
+    batch's, kept at this rank's rows; BatchNorm reduces over ``data``
+    (``batch_ctx``); each loss is this rank's sum over the global batch
+    size, so that each network's gradients, all-reduced over ``data`` as
+    one buffer before its update, are the global mean's; the metrics are
+    all-reduced.  The hooks ``z_d`` etc. then hold the global batch's
+    values."""
     policy = check_supported(cfg)
+    n_data = axis_size(mesh, "data")
+    data_index = axis_index(mesh, "data")
+    data_group = axis_group(mesh, "data")
+    if (cfg.train.grad_accum > 1 and n_data > 1
+            and (cfg.data.batch_size // cfg.train.grad_accum) % n_data):
+        raise ValueError(
+            f"microbatch size {cfg.data.batch_size // cfg.train.grad_accum} "
+            f"(batch_size/grad_accum) not divisible by the 'data' mesh axis "
+            f"({n_data})")
     ada_on = cfg.train.ada_target != 0
     kind, nz, n_critic = cfg.loss.kind, cfg.model.nz, cfg.loss.n_critic
     hflip = cfg.data.hflip
@@ -256,7 +280,42 @@ def build_train_step(cfg: Config, g: nn.Module, d: nn.Module
         return run(d, x, y) if conditional else run(d, x)
 
     def aug(x, key, p):
-        return apply_policy(x, key, policy, 1.0 if p is None else p)
+        return apply_policy(x, key, policy, 1.0 if p is None else p,
+                            rows=micro_rows(x))
+
+    def micro_rows(x):
+        """(global size, this rank's rows) of a (micro)batch ``x``: a
+        contiguous slice under the data mesh (microbatches are sharded
+        row-contiguously), None without one."""
+        if n_data == 1:
+            return None
+        per = x.shape[0]
+        return (per * n_data,
+                np.arange(data_index * per, (data_index + 1) * per))
+
+    def take(a, rows):
+        """The global batch's draw (or hook value) ``a`` at this rank's
+        rows."""
+        return a if rows is None or a is None else np.asarray(a)[rows]
+
+    def share(loss):
+        """This rank's part of a global-batch mean from its local mean."""
+        return loss if n_data == 1 else loss / n_data
+
+    def global_metrics(metrics):
+        """Local means -> the global batch's, in one all-reduce."""
+        if n_data == 1:
+            return metrics
+        keys = list(metrics)
+        flat = torch.stack([metrics[k].detach().float() / n_data
+                            for k in keys])
+        dist.all_reduce(flat, group=data_group)
+        return {k: flat[i] for i, k in enumerate(keys)}
+
+    def sync_grads(module):
+        # (a one-rank data axis too: its group's all-reduce runs)
+        if data_group is not None:
+            collectives.all_reduce_grads(module.parameters(), data_group)
 
     def aug_keys(key):
         """Each microbatch's augmentation key."""
@@ -284,6 +343,7 @@ def build_train_step(cfg: Config, g: nn.Module, d: nn.Module
                     ada_rt=rt)
 
     def d_update(state):
+        sync_grads(d)
         set_lr(state.opt_d, sched_d)
         state.opt_d.step()
         if clip is not None:
@@ -293,24 +353,26 @@ def build_train_step(cfg: Config, g: nn.Module, d: nn.Module
                     p.clamp_(-clip, clip)
 
     def g_update(state):
+        sync_grads(g)
         set_lr(state.opt_g, sched_g)
         state.opt_g.step()
         if state.g_ema is not None:
             ema_update(state.g_ema, g, ema_decay)
 
     def step(state: TrainState, batch: Dict) -> Tuple[TrainState, Dict]:
-        with convs.using_impl("xla"):
+        with convs.using_impl("xla"), batch_ctx(mesh):
             return _step(state, batch)
 
-    def _real_batch(state, batch, k_data, k_flip):
+    def _real_batch(state, batch, k_data, k_flip, rows):
         if "dataset_images" in batch:
             images = batch["dataset_images"]
-            n_data = images.shape[0]
+            n_set = images.shape[0]
             if cfg.data.sampling == "epoch":
-                idx = epoch_indices(root, state.step, bsz_cfg, n_data)
+                idx = epoch_indices(root, state.step, bsz_cfg, n_set)
             else:  # uniform with replacement
-                idx = threefry.randint(k_data, 0, n_data, (bsz_cfg,))
-            idx = torch.as_tensor(idx.astype(np.int64), device=images.device)
+                idx = threefry.randint(k_data, 0, n_set, (bsz_cfg,))
+            idx = torch.as_tensor(take(idx, rows).astype(np.int64),
+                                  device=images.device)
             x_real = images.index_select(0, idx)
             lab = batch.get("dataset_labels")
             y_real = None if lab is None else lab.index_select(0, idx)
@@ -324,9 +386,9 @@ def build_train_step(cfg: Config, g: nn.Module, d: nn.Module
         if x_real.dtype == torch.uint8:
             x_real = x_real.float() / 127.5 - 1.0
         if hflip:
-            bsz = x_real.shape[0]
-            flip = torch.from_numpy(
-                threefry.uniform(k_flip, (bsz, 1, 1, 1)) < 0.5).to(dev)
+            bsz = x_real.shape[0] * n_data
+            flip = torch.from_numpy(take(
+                threefry.uniform(k_flip, (bsz, 1, 1, 1)) < 0.5, rows)).to(dev)
             x_real = torch.where(flip, x_real.flip(2), x_real)
         return x_real, (y_real if conditional else None)
 
@@ -341,15 +403,19 @@ def build_train_step(cfg: Config, g: nn.Module, d: nn.Module
             (rng, k_zd, k_zg, k_gp, k_yd, k_yg, k_flip,
              k_data) = threefry.split(state.rng, 8)
             k_aug_d = k_aug_g = None
-        x_real, y_real = _real_batch(state, batch, k_data, k_flip)
+        # the global batch's size, and this rank's rows of it
+        bsz = (bsz_cfg if "dataset_images" in batch
+               else batch["image"].shape[-4] * n_data)
+        rows = (None if n_data == 1 else
+                local_rows(bsz, n_data, data_index, accum))
+        x_real, y_real = _real_batch(state, batch, k_data, k_flip, rows)
         dev = x_real.device
-        bsz = x_real.shape[0]
 
         def latents(name, key):
             z = batch.get(name)
             if z is None:
                 z = threefry.normal(key, (bsz, nz))
-            return torch.as_tensor(z, device=dev).float()
+            return torch.as_tensor(take(z, rows), device=dev).float()
 
         def fake_labels(name, key):
             if not conditional:
@@ -357,7 +423,7 @@ def build_train_step(cfg: Config, g: nn.Module, d: nn.Module
             y = batch.get(name)
             if y is None:
                 y = threefry.randint(key, 0, n_classes, (bsz,))
-            return torch.as_tensor(y, device=dev).long()
+            return torch.as_tensor(take(y, rows), device=dev).long()
 
         z_d = latents("z_d", k_zd)
         y_fake_d = fake_labels("y_fake_d", k_yd)
@@ -385,16 +451,16 @@ def build_train_step(cfg: Config, g: nn.Module, d: nn.Module
         real_logits = disc(x_real, y_real)
         loss_r = d_loss_real_fn(kind, real_logits,
                                 real_label=cfg.loss.real_label)
-        grads_real = torch.autograd.grad(loss_r, d_params)
+        grads_real = torch.autograd.grad(share(loss_r), d_params)
         fake_in = fake.detach().requires_grad_()
         fake_logits = disc(aug(fake_in, ka_f, ada_p) if policy else fake_in,
                            y_fake)
         # the two cotangents of the one linearization of D on the fake
         leaf = fake_logits.detach().requires_grad_()
         loss_f = d_loss_fake_fn(kind, leaf, fake_label=cfg.loss.fake_label)
-        c_d, = torch.autograd.grad(loss_f, leaf)
+        c_d, = torch.autograd.grad(share(loss_f), leaf)
         loss_g = g_loss_fn(kind, leaf)
-        c_g, = torch.autograd.grad(loss_g, leaf)
+        c_g, = torch.autograd.grad(share(loss_g), leaf)
         grads_fake = torch.autograd.grad(fake_logits, d_params,
                                          grad_outputs=c_d, retain_graph=True)
         fake_cot, = torch.autograd.grad(fake_logits, fake_in,
@@ -407,13 +473,15 @@ def build_train_step(cfg: Config, g: nn.Module, d: nn.Module
             "d_real": real_logits.detach().float().mean(),
             "d_fake": fake_logits.detach().float().mean(),
             "gp": torch.zeros((), device=x_real.device),
+            "loss_g": loss_g.detach(),
         }
         if ada_on:
             metrics["rt_batch"] = rt_batch(real_logits)
-        metrics = ada_update(state, metrics, x_real.shape[0])
+        metrics = ada_update(state, global_metrics(metrics),
+                             x_real.shape[0] * n_data)
         d_update(state)
         g_update(state)
-        return dict(metrics, loss_g=loss_g.detach())
+        return metrics
 
     def chunks(t):
         return [None] * accum if t is None else list(t.chunk(accum))
@@ -451,11 +519,12 @@ def build_train_step(cfg: Config, g: nn.Module, d: nn.Module
                 d.eval()  # the frozen state: no statistic or u moves
                 try:
                     gp = gradient_penalty(lambda x: d(x, yr) if conditional
-                                          else d(x), xr, fake, kg, alpha=ga)
+                                          else d(x), xr, fake, kg, alpha=ga,
+                                          rows=micro_rows(xr))
                 finally:
                     d.train()
                 loss_d = loss_d + cfg.loss.lambda_gp * gp
-            loss_d.backward()
+            share(loss_d).backward()
             ms.append({
                 "loss_d": loss_d.detach(),
                 "d_real": real_logits.detach().float().mean(),
@@ -467,8 +536,9 @@ def build_train_step(cfg: Config, g: nn.Module, d: nn.Module
         if accum > 1:
             for p in d.parameters():
                 p.grad.div_(accum)
-        metrics = ada_update(state, {k: mean([m[k] for m in ms])
-                                     for k in ms[0]}, x_real.shape[0])
+        metrics = ada_update(state, global_metrics(
+            {k: mean([m[k] for m in ms]) for k in ms[0]}),
+            x_real.shape[0] * n_data)
         d_update(state)
 
         # --- G update (every n_critic-th call) ---
@@ -484,7 +554,7 @@ def build_train_step(cfg: Config, g: nn.Module, d: nn.Module
                     if policy:  # differentiable: G's gradient flows through
                         fake = aug(fake, ka, ada_p)
                     loss_g = g_loss_fn(kind, disc(fake, yf))
-                    loss_g.backward()
+                    share(loss_g).backward()
                     losses.append(loss_g.detach())
             finally:
                 d.requires_grad_(True)
@@ -492,7 +562,8 @@ def build_train_step(cfg: Config, g: nn.Module, d: nn.Module
                 for p in g.parameters():
                     p.grad.div_(accum)
             g_update(state)
-            metrics["loss_g"] = mean(losses)
+            metrics["loss_g"] = global_metrics(
+                {"loss_g": mean(losses)})["loss_g"]
         else:
             metrics["loss_g"] = torch.zeros((), device=dev)
         return metrics

@@ -47,12 +47,34 @@ synthetic).  A conditional model (``cdcgan``) trains on the dataset's
 labels, and its grids take the fixed labels ``Sampler.labels(64, seed)``;
 a dataset whose labels are all zero is refused.
 
-Not ported yet (ROADMAP.md, Queue A), and raising here: meshes
-(``mesh_shape``, ``spatial_shards``, ``fsdp_shards``).
+Meshes (``parallel/``; one process per rank, in a ``torch.distributed``
+process group that the caller started: ``parallel.multihost.spawn``,
+``initialize_multihost`` or ``torchrun``), resolved as the JAX trainer
+resolves them:
+
+- ``mesh_shape`` N: a ``("data",)`` mesh of N ranks (data parallel: the
+  batch sharded, the state replicated);
+- ``fsdp_shards`` M: a ``("data", "model")`` mesh of (``mesh_shape`` or
+  world // M) x M ranks, parameters and moments sharded over ``model``;
+- ``spatial_shards`` S alone: a ``("space",)`` mesh of S ranks, feature
+  maps H-sharded (``parallel/spatial.py``); with ``mesh_shape`` a
+  ``("data", "space")`` mesh;
+- ``fsdp_shards`` with ``spatial_shards`` raises (both claim the second
+  axis).
+
+Asking for more ranks than are running raises.  When more than one rank
+shares the work, ``fuse_stats`` is off (the fused kernel's statistics are
+one rank's); at one rank it stays as configured.  Every rank computes; the
+first writes ``metrics.jsonl``, the grids and the ``keep_best``
+watermark, and checkpoints (``ckpt/checkpoint.py``: the first rank writes,
+the others wait).  The grids and FID come from the first rank (a whole
+copy of G under FSDP, gathered by every rank), from every rank together
+under spatial sharding; the scores are the first rank's.
 """
 
 from __future__ import annotations
 
+import contextlib
 import itertools
 import json
 import os
@@ -64,6 +86,7 @@ from typing import Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from tpugan_torch.ckpt.checkpoint import (CheckpointManager, atomic_write,
                                           load)
@@ -72,6 +95,10 @@ from tpugan_torch.data.datasets import load_dataset
 from tpugan_torch.data.pipeline import make_input_pipeline
 from tpugan_torch.eval.evaluate import evaluate
 from tpugan_torch.models.registry import build_models
+from tpugan_torch.parallel import fsdp, multihost, spatial
+from tpugan_torch.parallel.mesh import (axis_index, axis_size, in_mesh,
+                                        make_mesh, mesh_size,
+                                        shard_train_state)
 from tpugan_torch.sample.sampler import Sampler
 from tpugan_torch.train.state import (TrainState, create_train_state,
                                       sync_ema_buffers)
@@ -80,10 +107,9 @@ from tpugan_torch.utils.device import resolve_device
 from tpugan_torch.utils.images import make_grid, save_png, to_uint8
 from tpugan_torch.utils.logging import MetricsLogger
 
-_NOT_PORTED = (
-    ("mesh_shape", "Parallel"), ("spatial_shards", "Parallel"),
-    ("fsdp_shards", "Parallel"),
-)
+# calls between two checks for a preemption signal under a mesh (each
+# check is an all-reduce and a host sync)
+_AGREE_EVERY = 10
 
 # Graceful preemption: on SIGTERM (SIGINT likewise) the trainer finishes
 # the call in flight, saves a checkpoint and returns; the run resumes
@@ -119,14 +145,24 @@ def _disarm_preemption(prev) -> None:
         signal.signal(s, h)
 
 
+class _NullLogger:
+    """The metrics sink of every rank but the first."""
+
+    def log(self, *a, **k):
+        pass
+
+    def close(self):
+        pass
+
+
 class Trainer:
     def __init__(self, cfg: Config, data: Optional[dict] = None,
                  device="cuda"):
-        for field, item in _NOT_PORTED:
-            if getattr(cfg.train, field):
-                raise NotImplementedError(
-                    f"train.{field} is not ported yet (ROADMAP.md, Queue A: "
-                    f"{item!r}); set it to its off value")
+        # validation first, before any process-wide side effect
+        if cfg.train.fsdp_shards > 0 and cfg.train.spatial_shards > 0:
+            raise ValueError(
+                "train.fsdp_shards and train.spatial_shards both claim "
+                "the second mesh axis; choose one")
         k = cfg.train.steps_per_call
         if k > 1 and cfg.train.total_steps % k:
             # K steps a call: a partial last call would overshoot
@@ -148,17 +184,76 @@ class Trainer:
                 f"overflows 2^31: use sampling='replacement' for runs this "
                 f"long")
         self.cfg = cfg
-        self.device = resolve_device(device)
+        self.device = (multihost.rank_device(device) if multihost.world_size()
+                       > 1 else resolve_device(device))
+        self.mesh, self.spatial_mesh = self._resolve_mesh()
+        placed = self.mesh or self.spatial_mesh
+        if placed is not None and not in_mesh(placed):
+            raise ValueError(
+                f"rank {multihost.process_index()} is not in the "
+                f"{placed.size()}-rank mesh: run as many ranks as the mesh "
+                f"needs")
+        # the fused BN-statistics kernel sees one rank's batch
+        shared = (mesh_size(self.mesh) > 1
+                  or mesh_size(self.spatial_mesh) > 1)
+        self._fuse_mode = "off" if shared else cfg.train.fuse_stats
         gen = torch.Generator().manual_seed(cfg.train.seed)
         self.g, self.d = build_models(cfg.model, cfg.train.precision,
-                                      fuse_stats=cfg.train.fuse_stats,
+                                      fuse_stats=self._fuse_mode,
                                       device=self.device, generator=gen)
         self.state: TrainState = create_train_state(cfg, self.g, self.d)
-        self.step_fn = build_train_step(cfg, self.g, self.d)
+        self._place_state()
+        self.step_fn = build_train_step(cfg, self.g, self.d, mesh=self.mesh)
         self._data = data  # injected dataset (tests); else loaded lazily
         self._restored = False  # set by restore(): keeps the watermark
         self._best_cleared = False  # the first fresh train() clears best/
         self._best_fid = float("inf")
+
+    def _resolve_mesh(self):
+        """(the step's mesh, the spatial mesh), as the JAX trainer resolves
+        them (module docstring); (None, None) on one rank."""
+        t = self.cfg.train
+        dev = self.device.type
+        world = multihost.world_size()
+        if t.spatial_shards > 0:
+            n_space = t.spatial_shards
+            if t.mesh_shape:
+                m = spatial.make_mesh_dp_spatial(t.mesh_shape, n_space, dev)
+                return m, m
+            if world < n_space:
+                raise ValueError(
+                    f"train.spatial_shards={n_space} but only {world} "
+                    f"rank(s) are running: refusing a silently smaller mesh "
+                    f"(the per-shard extent and memory would double)")
+            if n_space == 1 and world == 1:
+                return None, None
+            from tpugan_torch.parallel.mesh import build_mesh
+
+            return None, build_mesh((n_space,), ("space",), dev)
+        if t.fsdp_shards > 0:
+            n_model = t.fsdp_shards
+            n_data = t.mesh_shape or max(world // n_model, 1)
+            if n_data * n_model == 1 and world == 1:
+                return None, None
+            return fsdp.make_mesh_2d(n_data, n_model, dev), None
+        if t.mesh_shape and (t.mesh_shape > 1 or dist.is_initialized()):
+            # (a one-rank group too: its collectives run)
+            return make_mesh(t.mesh_shape, dev), None
+        return None, None
+
+    def _place_state(self) -> None:
+        """Replicate the state over the mesh (FSDP: shard it)."""
+        mesh = self.mesh or self.spatial_mesh
+        if mesh is None:
+            return
+        if self.cfg.train.fsdp_shards > 0:
+            fsdp.shard_train_state_fsdp(self.state, mesh)
+        else:
+            shard_train_state(self.state, mesh)
+
+    @property
+    def is_main(self) -> bool:
+        return multihost.is_main_process()
 
     def _dataset(self) -> dict:
         if self._data is None:
@@ -173,20 +268,53 @@ class Trainer:
 
     def _gen_module(self) -> torch.nn.Module:
         """The generator that samples: the EMA of G when it is kept (with
-        G's live buffers copied in), else G."""
-        if self.state.g_ema is None:
-            return self.state.g
-        sync_ema_buffers(self.state)
-        return self.state.g_ema
+        G's live buffers copied in), else G; under FSDP a whole copy of it
+        (every rank must call)."""
+        g = self.state.g
+        if self.state.g_ema is not None:
+            sync_ema_buffers(self.state)
+            g = self.state.g_ema
+        return fsdp.dense_copy(g) if self.state.fsdp else g
+
+    def _on_all_ranks(self) -> bool:
+        """Whether generation is collective: spatial sharding runs one
+        forward over every rank; otherwise the first rank generates."""
+        return self.spatial_mesh is not None
 
     def sampler(self) -> Sampler:
         return Sampler(self.cfg, self._gen_module())
 
     def evaluate(self, seed: int = 0) -> Dict[str, float]:
         """FID, KID and IS of the sampling generator (the EMA of G when it
-        is kept) against the run's dataset, on this trainer's device."""
-        return evaluate(self.cfg, self._gen_module(), seed=seed,
-                        real_images=self._dataset()["images"])
+        is kept) against the run's dataset, on this trainer's device; under
+        a mesh every rank calls it and gets the first rank's scores."""
+        g = self._gen_module()
+        scores = None
+        if self.is_main or self._on_all_ranks():
+            with self._spatial():
+                scores = evaluate(self.cfg, g, seed=seed,
+                                  real_images=self._dataset()["images"])
+        if dist.is_initialized():
+            box = [scores]
+            dist.broadcast_object_list(box, src=0)
+            scores = box[0]
+        return scores
+
+    def _grid(self, fixed_z, fixed_y) -> Optional[np.ndarray]:
+        """The fixed-noise grid's images on the first rank (None on the
+        others)."""
+        g = self._gen_module()
+        if not (self.is_main or self._on_all_ranks()):
+            return None
+        with self._spatial():
+            imgs = Sampler(self.cfg, g).sample_fixed(fixed_z, fixed_y)
+        return imgs if self.is_main else None
+
+    def _spatial(self):
+        """The spatial context of this trainer's mesh (a no-op without)."""
+        if self.spatial_mesh is None:
+            return contextlib.nullcontext()
+        return spatial.spatial_ctx(self.spatial_mesh)
 
     # -- keep_best watermark ------------------------------------------------
     def _best_dir(self) -> str:
@@ -202,6 +330,9 @@ class Trainer:
             return None
 
     def _save_best_watermark(self, step: int, fid: float) -> None:
+        if not self.is_main:
+            return
+
         def write(path):
             with open(path, "w") as f:
                 json.dump({"fid": float(fid), "step": int(step)}, f)
@@ -217,7 +348,8 @@ class Trainer:
             meta = self._load_best_meta()
             if meta is not None:
                 self._best_fid = min(self._best_fid, meta["fid"])
-        elif not self._best_cleared and os.path.isdir(self._best_dir()):
+        elif (not self._best_cleared and self.is_main
+              and os.path.isdir(self._best_dir())):
             print(f"warning: clearing stale best slot {self._best_dir()} "
                   f"from a previous run (a fresh run owns ckpt_dir/best; "
                   f"resume the old run to keep it)")
@@ -260,11 +392,28 @@ class Trainer:
                 resident["dataset_labels"] = torch.from_numpy(
                     np.asarray(data["labels"])).to(self.device)
             return itertools.repeat(resident)
+        n_data = axis_size(self.mesh, "data")
+        rows = None if n_data == 1 else multihost.local_rows(
+            cfg.data.batch_size, n_data, axis_index(self.mesh, "data"),
+            cfg.train.grad_accum)
         return make_input_pipeline(
             data, cfg.data.batch_size, seed=cfg.train.seed,
             with_labels=conditional, device=self.device,
             start_step=self.state.step,
-            stack=max(cfg.train.steps_per_call, 1))
+            stack=max(cfg.train.steps_per_call, 1), rows=rows)
+
+    def _preempted(self, call: int) -> bool:
+        """A SIGTERM / SIGINT seen: under a mesh, by any rank, checked every
+        ``_AGREE_EVERY`` calls (one all-reduce), so that all ranks stop at
+        the same step."""
+        flag = _PREEMPTED.is_set()
+        if mesh_size(self.mesh or self.spatial_mesh) > 1:
+            if call % _AGREE_EVERY:
+                return False
+            t = torch.tensor([float(flag)], device=self.device)
+            dist.all_reduce(t)
+            flag = bool(t.item())
+        return flag
 
     def _stop_profiler(self, prof, path: str) -> None:
         if self.device.type == "cuda":
@@ -284,10 +433,11 @@ class Trainer:
         ckpt = CheckpointManager(t.ckpt_dir)
         if t.resume:
             start = self.restore(t.resume)
-            print(f"resumed from step {start}")
+            if self.is_main:
+                print(f"resumed from step {start}")
         elif not self._restored:
             prev = ckpt.latest_step()
-            if prev is not None and prev > self.state.step:
+            if prev is not None and prev > self.state.step and self.is_main:
                 # the old run's higher steps would win latest_step() on a
                 # later resume
                 print(f"warning: {t.ckpt_dir} already holds step {prev} from "
@@ -307,7 +457,7 @@ class Trainer:
                     f"conditional training (model.arch='cdcgan', n_classes="
                     f"{cfg.model.n_classes}) but the dataset's labels are "
                     f"all zero: is the label file missing?")
-        logger = MetricsLogger(out_dir)
+        logger = MetricsLogger(out_dir) if self.is_main else _NullLogger()
         k = max(t.steps_per_call, 1)
         bsz = cfg.data.batch_size
         it = iter(self._batches(data))
@@ -326,9 +476,14 @@ class Trainer:
         start_step = self.state.step
         prev_handlers = _arm_preemption()
         preempted = False
+        if self.spatial_mesh is not None:
+            # (re-)installed for this run and cleared in the finally below,
+            # so that it cannot leak into other trainers in this process
+            spatial.set_spatial_mesh(self.spatial_mesh)
         try:
             for i in range(start_step, total_steps, k):
-                if prev_handlers is not None and _PREEMPTED.is_set():
+                if prev_handlers is not None and self._preempted(
+                        (i - start_step) // k):
                     preempted = True
                     break
                 # the profiler's window: calls 2 .. 1 + profile_steps
@@ -368,16 +523,15 @@ class Trainer:
                     t0 = time.perf_counter()
                     imgs_since = 0
                 if t.sample_every and (step_no % t.sample_every < k or last):
-                    imgs = Sampler(cfg, self._gen_module()).sample_fixed(
-                        fixed_z, fixed_y)
-                    save_png(os.path.join(out_dir,
-                                          f"samples_{step_no:07d}.png"),
-                             make_grid(to_uint8(imgs), nrow=8))
+                    imgs = self._grid(fixed_z, fixed_y)
+                    if imgs is not None:
+                        save_png(os.path.join(out_dir,
+                                              f"samples_{step_no:07d}.png"),
+                                 make_grid(to_uint8(imgs), nrow=8))
                     t0 = time.perf_counter()  # grid D2H + PNG out of img/s
                     imgs_since = 0
                 if t.eval_every and (step_no % t.eval_every < k or last):
-                    scores = evaluate(cfg, self._gen_module(), seed=t.seed,
-                                      real_images=data["images"])
+                    scores = self.evaluate(seed=t.seed)
                     logger.log(step_no, {key: v for key, v in scores.items()
                                          if isinstance(v, (int, float))},
                                prefix="eval")
@@ -400,7 +554,7 @@ class Trainer:
                 self._stop_profiler(prof, prof_path)
                 prof = None
             self.save_checkpoint(ckpt)
-            if preempted:
+            if preempted and self.is_main:
                 print(f"preempted at step {self.state.step}: checkpoint "
                       f"saved to {t.ckpt_dir}; rerun with train.resume="
                       f"{t.ckpt_dir!r} to continue")
@@ -410,6 +564,8 @@ class Trainer:
             # SIGTERM after training would leave the process unkillable
             # gracefully
             _disarm_preemption(prev_handlers)
+            if self.spatial_mesh is not None:
+                spatial.set_spatial_mesh(None)
             if prof is not None:
                 prof.stop()
             getattr(it, "close", lambda: None)()
