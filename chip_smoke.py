@@ -150,13 +150,28 @@ Phases, each of which fails the run (no exception is caught):
    launches a pass on each rank), then ``serve --shards 2 --ckpt`` (phase
    15's checkpoint) answering 3 ``POST /sample`` within ``image_err`` of
    the module path.  Each of 16-19 prints its backend, world, cards,
-   ms/step or ms/call and launch counts; ranks report their own counts.
+   ms/step or ms/call and launch counts; ranks report their own counts;
+20. the six ``examples_torch`` scripts as a user runs them, each as
+   ``__main__`` with its argv, from its own directory under
+   ``runs/smoke/examples``: ``train_dcgan_mnist``,
+   ``train_wgan_gp_cifar10`` (an eval at its last step),
+   ``data_parallel_training`` and ``train_256px_spatial`` (``--width
+   32``) on two ranks (gloo sharing the one card, as 17-19), 20 steps
+   each at the presets' widths, ``train_multihost`` as two processes
+   meeting at a ``--coordinator`` (the same ``loss_d`` on both), and
+   ``serve_and_query`` on the MNIST run's checkpoint (``served == local
+   ... True``); each one's wall time, ms/step over its last log window
+   (the global batch over the Trainer's ``images_per_sec``) and its
+   launch counts, its ranks' and processes' summed (zero under the
+   presets' ``kernels="xla"``, ``fuse_stats="off"``).  A script that
+   raises, lacks its output or prints ``False`` fails the run.
 
 Phases 3-4, 5, 6, 7 (train, eval D), 8, 9 (train, eval D), 10, 11, 12
 (``grad_accum``, remat's plain twin, remat), 14 (streaming, in RAM,
 resumed, timed, ``evaluate``), 15 (each command, the artifact's
-``generate``, the fixed-batch tail, ``unroll`` under "pallas") and 16-19
-(each mesh run, its ranks' counts summed) are the paths: each zeroes
+``generate``, the fixed-batch tail, ``unroll`` under "pallas"), 16-19
+(each mesh run, its ranks' counts summed) and 20 (each example) are the
+paths: each zeroes
 the launch counters just before it and reads them just after, and every
 kernel it names must have launched.  Each kernel's ``launches`` in the
 ``kernels`` line sums its paths' counts, and ``launches_by_path`` lists
@@ -181,16 +196,20 @@ each against the single card at steps 1 and 3.
 
 from __future__ import annotations
 
+import contextlib
 import io
 import json
 import os
+import queue
 import re
+import runpy
 import shutil
 import signal
 import subprocess
 import sys
 import threading
 import time
+import traceback
 import urllib.request
 from pathlib import Path
 
@@ -1594,6 +1613,186 @@ def parallel_phases(dev, zero_counts, read_counts, add_counts) -> dict:
         f"19 in {time.time() - t0:.1f}s")
     found["serve_err"] = max(errs)
     return found
+
+
+# ---------------------------------------------------------------------------
+# Phase 20: the six ``examples_torch`` scripts, run as a user runs them
+# ---------------------------------------------------------------------------
+
+def _run_example(path: str, argv, cwd: str) -> str:
+    """Run the example script at ``path`` as ``__main__`` with ``argv``
+    from ``cwd`` in this process; returns what it printed (also echoed)."""
+    class Tee(io.StringIO):
+        def write(self, text):
+            sys.__stdout__.write(text)
+            return super().write(text)
+
+    buf = Tee()
+    saved = sys.argv, os.getcwd()
+    os.chdir(cwd)
+    sys.argv = [path, *map(str, argv)]
+    try:
+        with contextlib.redirect_stdout(buf):
+            runpy.run_path(path, run_name="__main__")
+    finally:
+        sys.argv = saved[0]
+        os.chdir(saved[1])
+    return buf.getvalue()
+
+
+def _counted_rank(rank, fn, args):
+    """An example's rank function ``fn``, with this rank's launch counts."""
+    counts = _rank_setup()
+    return fn(rank, *args), counts()
+
+
+def _example_process(path, argv, cwd, out):
+    """One process of a multi-process example: (ok, what it printed, its
+    launch counts) on the queue ``out``."""
+    counts = _rank_setup()
+    try:
+        text = _run_example(path, argv, cwd)
+    except BaseException:
+        out.put((False, traceback.format_exc(), counts()))
+        raise
+    out.put((True, text, counts()))
+
+
+def examples_phase(zero_counts, add_counts) -> None:
+    """Phase 20 (module docstring)."""
+    import ast
+    import socket
+
+    import numpy as np
+    import torch
+
+    import chip_smoke as this  # its functions pickle by this name
+    from tpugan_torch.ops import (cuda_conv, cuda_conv_stats, cuda_convt,
+                                  cuda_gen, cuda_gen2)
+    from tpugan_torch.parallel import multihost
+
+    work = RUNS / "examples"
+    cards = torch.cuda.device_count()
+    # two ranks: NCCL, one a card, where there are two cards; else gloo,
+    # both on the one card, asked for explicitly
+    shared = [] if cards >= 2 else ["--backend", "gloo"]
+    mods = dict(zip(COUNT_KEYS, (cuda_convt, cuda_gen, cuda_gen2, cuda_conv,
+                                 cuda_conv_stats)))
+    rank_counts = []
+    spawn = multihost.spawn
+
+    def counted_spawn(fn, world, args=(), **kw):
+        out = spawn(this._counted_rank, world, (fn, tuple(args)), **kw)
+        rank_counts.extend(c for _, c in out)
+        return [r for r, _ in out]
+
+    def rate(cwd):
+        """(ms/step, steps) of the run's last log window under ``cwd``:
+        the global batch over its ``images_per_sec``."""
+        recs = [json.loads(line) for line in next(cwd.rglob(
+            "metrics.jsonl")).read_text().splitlines()]
+        train = [r for r in recs if "images_per_sec" in r]
+        bsz = json.loads(next(cwd.rglob("config.json")).read_text())[
+            "data"]["batch_size"]
+        window = train[-1]["step"] - (train[-2]["step"] if len(train) > 1
+                                      else 0)
+        return 1e3 * bsz / train[-1]["images_per_sec"], window
+
+    def run(name, argv, check, processes=0):
+        """One example from ``work/name``: its wall time, launch deltas
+        (this process's and its ranks' or processes', summed) and, where
+        it trains, ms/step; ``check(text, cwd)`` holds its output."""
+        cwd = work / name
+        cwd.mkdir(parents=True)
+        path = str(ROOT / "examples_torch" / f"{name}.py")
+        zero_counts()
+        rank_counts.clear()
+        t0 = time.time()
+        if processes:
+            with socket.socket() as sock:
+                sock.bind(("127.0.0.1", 0))
+                port = sock.getsockname()[1]
+            ctx = multihost.rank_context()
+            q = ctx.Queue()
+            procs = [ctx.Process(target=this._example_process, args=(
+                path, [*argv, "--num-processes", processes, "--process-id",
+                       i, "--coordinator", f"127.0.0.1:{port}"],
+                str(cwd), q)) for i in range(processes)]
+            for p in procs:
+                p.start()
+            outs, t_end = [], time.time() + 600
+            try:
+                while len(outs) < processes:
+                    try:
+                        outs.append(q.get(timeout=1.0))
+                    except queue.Empty:
+                        require(time.time() < t_end
+                                and not any(p.exitcode for p in procs),
+                                f"{name}: no result; exit codes "
+                                f"{[p.exitcode for p in procs]}")
+            finally:
+                for p in procs:
+                    p.join(timeout=60)
+                    if p.is_alive():
+                        p.kill()
+            require(all(ok for ok, _, _ in outs)
+                    and all(p.exitcode == 0 for p in procs),
+                    f"{name}: a process failed: "
+                    f"{[t for ok, t, _ in outs if not ok]}")
+            text = "".join(t for _, t, _ in outs)
+            rank_counts.extend(c for _, _, c in outs)
+        else:
+            multihost.spawn = counted_spawn
+            try:
+                text = _run_example(path, argv, str(cwd))
+            finally:
+                multihost.spawn = spawn
+        wall = time.time() - t0
+        counts = {k: m.launches + sum(c[k] for c in rank_counts)
+                  for k, m in mods.items()}
+        add_counts(f"example {name}", counts)
+        require("False" not in text, f"{name} printed False:\n{text}")
+        check(text, cwd)
+        ms, window = rate(cwd) if name != "serve_and_query" else (None, 0)
+        log(f"[examples] 20 {name} {' '.join(map(str, argv))}: wall "
+            f"{wall:.2f}s"
+            + (f", {ms:.4f} ms/step over the last log window of {window} "
+               f"step(s)" if ms else "")
+            + f"; launches {counts}; card {card()}")
+
+    def trained(text, cwd):
+        metrics = ast.literal_eval(  # the dict the script prints last
+            text.strip().splitlines()[-1].split("final: ")[-1])
+        require(all(np.isfinite(v) for v in metrics.values()),
+                f"non-finite metrics {metrics}")
+
+    t0 = time.time()
+    mnist = work / "train_dcgan_mnist" / "mnist"
+    run("train_dcgan_mnist", ["--steps", 20, "--out", mnist],
+        lambda text, cwd: (trained(text, cwd), require(
+            (mnist / "final_grid.png").is_file(), "no final_grid.png")))
+    run("train_wgan_gp_cifar10", ["--steps", 20, "--out", "wgan"],
+        lambda text, cwd: (trained(text, cwd), require(
+            '"fid"' in (cwd / "wgan" / "metrics.jsonl").read_text(),
+            "no eval at the last step")))
+    run("data_parallel_training", ["--steps", 20, "--world", 2, *shared],
+        trained)
+    run("train_256px_spatial", ["--steps", 20, "--width", 32, "--world", 2,
+                                *shared], trained)
+
+    def agree(text, cwd):
+        done = dict(re.findall(r"\[process (\d)\] done: loss_d=(\S+)",
+                               text))
+        require(sorted(done) == ["0", "1"] and done["0"] == done["1"],
+                f"train_multihost: loss_d by process {done}")
+
+    run("train_multihost", ["--steps", 20, "--out", "mh", *shared], agree,
+        processes=2)
+    run("serve_and_query", ["--ckpt", mnist / "ckpt"],
+        lambda text, cwd: require(
+            "served == local for seed 7: True" in text,
+            "serve_and_query: no 'served == local ... True'"))
+    log(f"[examples] phase 20 in {time.time() - t0:.1f}s")
 
 
 def main() -> int:
@@ -3069,7 +3268,11 @@ def main() -> int:
     parallel_phases(dev, zero_counts, read_counts, add_counts)
     log(f"[mesh] phases 16-19 in {time.time() - t0:.1f}s; card {card()}")
 
-    # -- 20. report ---------------------------------------------------------
+    # -- 20. the six examples ----------------------------------------------
+    torch.cuda.empty_cache()
+    examples_phase(zero_counts, add_counts)
+
+    # -- 21. report ---------------------------------------------------------
     for key, rep_k in report.items():
         by_path = {p: c[key] for p, c in path_counts.items() if c[key]}
         rep_k["launches"] = sum(by_path.values())

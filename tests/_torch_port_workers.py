@@ -376,3 +376,26 @@ def fail_on(rank, bad):
     if rank == bad:
         raise RuntimeError(f"rank {rank} fails on purpose")
     dist.barrier()
+
+
+def run_example(path, argv, cwd, out, threads):
+    """Run the example script at ``path`` as ``__main__`` with ``argv`` from
+    ``cwd`` in this process, on ``threads`` threads; put (ok, what it
+    printed) on the queue ``out``."""
+    import contextlib
+    import io
+    import runpy
+    import sys
+    import traceback
+
+    torch.set_num_threads(threads)
+    os.chdir(cwd)
+    sys.argv = [path, *argv]
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            runpy.run_path(path, run_name="__main__")
+    except BaseException:
+        out.put((False, buf.getvalue() + traceback.format_exc()))
+        raise
+    out.put((True, buf.getvalue()))

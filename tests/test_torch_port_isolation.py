@@ -1,6 +1,6 @@
 """The port stands alone: no module of ``tpugan_torch`` (nor
-``chip_smoke.py``) imports JAX or the JAX package, and the package imports
-with JAX made unimportable."""
+``chip_smoke.py``, nor a script of ``examples_torch/``) imports JAX or the
+JAX package, and the package imports with JAX made unimportable."""
 
 import ast
 import subprocess
@@ -11,7 +11,7 @@ import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
 SOURCES = sorted((ROOT / "tpugan_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+    ROOT / "chip_smoke.py"] + sorted((ROOT / "examples_torch").glob("*.py"))
 
 
 def _imported_modules(path: Path):
@@ -43,7 +43,7 @@ def test_package_imports_without_jax():
             "tpugan_torch.parallel, tpugan_torch.parallel.multihost, "
             "tpugan_torch.parallel.mesh, tpugan_torch.parallel.collectives, "
             "tpugan_torch.parallel.fsdp, tpugan_torch.parallel.spatial, "
-            "tpugan_torch.parallel.inference; "
+            "tpugan_torch.parallel.inference, tpugan_torch.utils.debug; "
             "assert 'jax' not in [m.split('.')[0] for m in sys.modules "
             "if sys.modules[m] is not None]")
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,

@@ -5,8 +5,9 @@ conditional preset on the dataset's labels, and the fast preset (FusedProp,
 resident data, steps a call); ``eval_every`` and ``keep_best`` log the JAX
 trainer's FID and bank its watermark, which a resumed run keeps; the input
 pipeline yields the JAX pipeline's batches; a mesh larger than the ranks
-running is refused, and so is conditional training on labels that are
-all zero; the options ported since train, the dataset files among
+running is refused, a passed mesh is resolved as the JAX Trainer resolves
+it, and conditional training on labels that are
+all zero is refused; the options ported since train, the dataset files among
 them."""
 
 import gzip
@@ -210,6 +211,50 @@ def test_unported_options_raise(tmp_path, override, match):
          "train.ckpt_dir": str(tmp_path / "ckpt"), **override})
     with pytest.raises(ValueError, match=match):
         Trainer(cfg, device="cpu").train(1)
+
+
+class _Mesh:
+    """A stand-in for a ``("data",)`` mesh of ``n`` ranks."""
+
+    def __init__(self, n):
+        self.n = n
+
+    def size(self):
+        return self.n
+
+
+@pytest.mark.parametrize("override,n,want", [
+    ({}, 4, "passed"),
+    ({"train.mesh_shape": 2}, 4, "passed"),
+    ({"train.spatial_shards": 2}, 4, ("dp_space", 2, 2)),
+    ({"train.spatial_shards": 2, "train.mesh_shape": 1}, 4,
+     ("dp_space", 1, 2)),
+    ({"train.fsdp_shards": 2}, 4, ("2d", 1, 2)),
+])
+def test_a_passed_mesh_resolves_as_the_jax_trainer_resolves(
+        monkeypatch, override, n, want):
+    """``Trainer(cfg, mesh=)`` as the JAX Trainer takes it: the passed
+    ``("data",)`` mesh steps the batch, spatial sharding makes it a
+    (N // S, S) ``("data", "space")`` mesh (``mesh_shape`` first), FSDP's
+    2-D mesh supersedes it."""
+    import torch
+
+    from tpugan_torch.parallel import fsdp, spatial
+
+    monkeypatch.setattr(spatial, "make_mesh_dp_spatial",
+                        lambda d, s, dev: ("dp_space", d, s))
+    monkeypatch.setattr(fsdp, "make_mesh_2d", lambda d, m, dev: ("2d", d, m))
+    tr = object.__new__(Trainer)
+    tr.cfg = port_preset("dcgan_cifar10").override({**TINY, **override})
+    tr.device = torch.device("cpu")
+    mesh = _Mesh(n)
+    step_mesh, spatial_mesh = tr._resolve_mesh(mesh)
+    if want == "passed":
+        assert step_mesh is mesh and spatial_mesh is None
+    elif want[0] == "dp_space":
+        assert step_mesh == spatial_mesh == want
+    else:
+        assert step_mesh == want and spatial_mesh is None
 
 
 def _write_dataset(name: str, root) -> None:

@@ -13,15 +13,18 @@ when the caller asks for it.  The backend is chosen explicitly:
 
 ``initialize_multihost`` joins a process group (a coordinator address,
 explicit, or the launcher's environment under ``torchrun``), ``spawn``
-starts ``world`` local ranks (``torch.multiprocessing``, the ``spawn``
-start method) that meet through a file store in a fresh temporary
-directory, never a fixed port.  In the port every process holds only its
-own shard of a batch, so ``make_global_batch`` just moves the local rows
-to the rank's device.
+starts ``world`` local ranks that meet through a file store in a fresh
+temporary directory, never a fixed port.  Ranks fork from a forkserver
+that has imported ``torch`` and the package once (``rank_context``), so
+a rank does not pay those imports again; the forkserver touches no CUDA
+API, and a rank binds its card after the fork.  In the port every
+process holds only its own shard of a batch, so ``make_global_batch``
+just moves the local rows to the rank's device.
 """
 
 from __future__ import annotations
 
+import atexit
 import os
 import queue
 import shutil
@@ -176,9 +179,48 @@ def make_global_batch(local_batch: dict, device) -> dict:
 # The local spawner
 # ---------------------------------------------------------------------------
 
-def _entry(rank, world, fn, args, url, backend, device, results):
+# What a rank imports before its first step, imported once in the
+# forkserver: ``torch._dynamo`` comes with the first optimizer
+# (``torch.optim``'s ``add_param_group`` imports it), the package with the
+# Trainer and the CLI's rank functions.  None of these calls a CUDA API
+# when imported.
+PRELOAD = ("torch", "torch.distributed", "torch._dynamo",
+           "tpugan_torch.parallel", "tpugan_torch.train.trainer",
+           "tpugan_torch.cli")
+
+
+def rank_context():
+    """The ``multiprocessing`` context that rank processes start from: a
+    forkserver that preloads ``PRELOAD``.  The forkserver is started on
+    the first ``Process.start`` and serves this process from then on (its
+    preload is fixed then); this process stops it at exit
+    (``stop_forkserver``)."""
+    ctx = torch.multiprocessing.get_context("forkserver")
+    ctx.set_forkserver_preload(list(PRELOAD))
+    # left alone, it would outlive this process by the second or two it
+    # takes to tear down its imports
+    atexit.unregister(stop_forkserver)
+    atexit.register(stop_forkserver)
+    return ctx
+
+
+def stop_forkserver() -> None:
+    """Stop the ranks' forkserver, if one runs, and wait for it to exit
+    (``multiprocessing``'s own stop, the one its tests use)."""
+    from multiprocessing import forkserver
+
+    forkserver._forkserver._stop()
+
+
+def _entry(rank, world, fn, args, url, backend, device, env, threads,
+           results):
+    # a forked rank has the forkserver's environment: take the parent's
+    os.environ.clear()
+    os.environ.update(env)
     os.environ["LOCAL_RANK"] = str(rank)
     os.environ["LOCAL_WORLD_SIZE"] = str(world)
+    if torch.device(device).type == "cpu":
+        torch.set_num_threads(threads)
     try:
         initialize_multihost(url, world, rank, backend=backend,
                              device=device)
@@ -197,8 +239,12 @@ def spawn(fn: Callable, world: int, args: Sequence = (), *,
     """Run ``fn(rank, *args)`` in ``world`` new processes joined in one
     process group; returns their results by rank.
 
-    ``fn`` and ``args`` are pickled (``fn`` by its import path).  The ranks
-    meet through a file store in a fresh temporary directory.  A SIGTERM or
+    ``fn`` and ``args`` are pickled (``fn`` by its import path); the ranks
+    fork from ``rank_context``'s forkserver with this process's working
+    directory, ``sys.path`` and environment, and meet through a file store
+    in a fresh temporary directory.  CPU ranks split this process's
+    threads (``torch.get_num_threads``) between them: each taking as many
+    would oversubscribe the host ``world`` times over.  A SIGTERM or
     SIGINT sent to this process is passed on to the ranks; a rank that
     fails or dies stops the others, and the failure is raised here with its
     traceback.
@@ -207,13 +253,15 @@ def spawn(fn: Callable, world: int, args: Sequence = (), *,
     if world < 1:
         raise ValueError(f"world must be >= 1, got {world}")
     choose_backend(device, world, backend)  # refuse before starting any
-    ctx = torch.multiprocessing.get_context("spawn")
+    ctx = rank_context()
     results = ctx.Queue()
     tmp = tempfile.mkdtemp(prefix="tpugan_torch_rdzv_")
     url = "file://" + os.path.join(tmp, "store")
     procs = [ctx.Process(target=_entry, daemon=False,
                          args=(r, world, fn, tuple(args), url, backend,
-                               str(device), results))
+                               str(device), dict(os.environ),
+                               max(1, torch.get_num_threads() // world),
+                               results))
              for r in range(world)]
 
     def forward(signum, frame):

@@ -52,13 +52,15 @@ process group that the caller started: ``parallel.multihost.spawn``,
 ``initialize_multihost`` or ``torchrun``), resolved as the JAX trainer
 resolves them:
 
-- ``mesh_shape`` N: a ``("data",)`` mesh of N ranks (data parallel: the
-  batch sharded, the state replicated);
+- ``mesh`` (an argument: a ``("data",)`` mesh from ``parallel.make_mesh``)
+  or ``mesh_shape`` N: a ``("data",)`` mesh of N ranks (data parallel:
+  the batch sharded, the state replicated);
 - ``fsdp_shards`` M: a ``("data", "model")`` mesh of (``mesh_shape`` or
   world // M) x M ranks, parameters and moments sharded over ``model``;
 - ``spatial_shards`` S alone: a ``("space",)`` mesh of S ranks, feature
-  maps H-sharded (``parallel/spatial.py``); with ``mesh_shape`` a
-  ``("data", "space")`` mesh;
+  maps H-sharded (``parallel/spatial.py``); with ``mesh_shape`` (or a
+  ``mesh`` of N ranks: ``mesh_shape`` N // S) a ``("data", "space")``
+  mesh, which supersedes the ``mesh`` passed;
 - ``fsdp_shards`` with ``spatial_shards`` raises (both claim the second
   axis).
 
@@ -157,7 +159,7 @@ class _NullLogger:
 
 class Trainer:
     def __init__(self, cfg: Config, data: Optional[dict] = None,
-                 device="cuda"):
+                 device="cuda", mesh=None):
         # validation first, before any process-wide side effect
         if cfg.train.fsdp_shards > 0 and cfg.train.spatial_shards > 0:
             raise ValueError(
@@ -186,7 +188,7 @@ class Trainer:
         self.cfg = cfg
         self.device = (multihost.rank_device(device) if multihost.world_size()
                        > 1 else resolve_device(device))
-        self.mesh, self.spatial_mesh = self._resolve_mesh()
+        self.mesh, self.spatial_mesh = self._resolve_mesh(mesh)
         placed = self.mesh or self.spatial_mesh
         if placed is not None and not in_mesh(placed):
             raise ValueError(
@@ -209,16 +211,19 @@ class Trainer:
         self._best_cleared = False  # the first fresh train() clears best/
         self._best_fid = float("inf")
 
-    def _resolve_mesh(self):
+    def _resolve_mesh(self, mesh):
         """(the step's mesh, the spatial mesh), as the JAX trainer resolves
-        them (module docstring); (None, None) on one rank."""
+        them with ``mesh`` passed (module docstring); (None, None) on one
+        rank."""
         t = self.cfg.train
         dev = self.device.type
         world = multihost.world_size()
         if t.spatial_shards > 0:
             n_space = t.spatial_shards
-            if t.mesh_shape:
-                m = spatial.make_mesh_dp_spatial(t.mesh_shape, n_space, dev)
+            n_data = t.mesh_shape or (mesh.size() // n_space
+                                      if mesh is not None else 0)
+            if n_data:
+                m = spatial.make_mesh_dp_spatial(n_data, n_space, dev)
                 return m, m
             if world < n_space:
                 raise ValueError(
@@ -236,6 +241,8 @@ class Trainer:
             if n_data * n_model == 1 and world == 1:
                 return None, None
             return fsdp.make_mesh_2d(n_data, n_model, dev), None
+        if mesh is not None:
+            return mesh, None
         if t.mesh_shape and (t.mesh_shape > 1 or dist.is_initialized()):
             # (a one-rank group too: its collectives run)
             return make_mesh(t.mesh_shape, dev), None
