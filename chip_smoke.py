@@ -164,18 +164,38 @@ Phases, each of which fails the run (no exception is caught):
    (the global batch over the Trainer's ``images_per_sec``) and its
    launch counts, its ranks' and processes' summed (zero under the
    presets' ``kernels="xla"``, ``fuse_stats="off"``).  A script that
-   raises, lacks its output or prints ``False`` fails the run.
+   raises, lacks its output or prints ``False`` fails the run;
+21. fp32 operands (``train.precision="fp32"``, ``kernels="pallas"``),
+   TF32 off: kernels 1, 4 and 5 on fp32 x and w at the path's shapes
+   (kernel 1 at the fp32 generator's four layers, batch 256; kernel 4 at
+   its D's four layers, batch 128, and the conditional D's Cin-4 layer;
+   kernel 5 at the three BN layers, batches 128 and 64), each within 1e-5
+   of the layer's largest |ref| of its plain version, with two TF32 runs
+   of the same function beside (cuDNN with TF32 on; the plain version on
+   TF32-rounded operands), timed beside cuDNN in fp32 and bound at the
+   fp32 FMA rate; then full-width fp32 ``dcgan_celeba64`` trained with
+   ``fuse_stats`` on and off from one seed (step 1's losses within 1e-3,
+   exactly 9 kernel-5 launches a step, steps timed in turns), its D in
+   eval mode under "pallas" against "xla" (4 kernel-4 launches a
+   forward), its eval G's module path (4 kernel-1 launches), the exported
+   fp32 artifact's ``generate(256)`` (4 launches, the module path's bits)
+   and ``Sampler.sample(256)`` (one v2 launch, against v2's plain
+   version), and the CLI's ``train`` / ``sample`` / ``serve --ckpt`` with
+   ``tests/test_torch_port_cli.py``'s settings (``dcgan_mnist``, fp32,
+   "pallas").
 
 Phases 3-4, 5, 6, 7 (train, eval D), 8, 9 (train, eval D), 10, 11, 12
 (``grad_accum``, remat's plain twin, remat), 14 (streaming, in RAM,
 resumed, timed, ``evaluate``), 15 (each command, the artifact's
 ``generate``, the fixed-batch tail, ``unroll`` under "pallas"), 16-19
-(each mesh run, its ranks' counts summed) and 20 (each example) are the
-paths: each zeroes
+(each mesh run, its ranks' counts summed), 20 (each example) and 21
+(each fp32 path, named "fp32 ...") are the paths: each zeroes
 the launch counters just before it and reads them just after, and every
 kernel it names must have launched.  Each kernel's ``launches`` in the
 ``kernels`` line sums its paths' counts, and ``launches_by_path`` lists
-them.
+them; kernels 1, 4 and 5 carry an ``fp32`` case in ``cases`` (phase 21's
+layers summed over one forward, each layer beside, and the launches of
+the fp32 paths).
 Checkpoints, the dataset files and the flagship's trace go to the
 git-ignored ``runs/smoke``.  The last lines are the ``kernels`` JSON, the
 card's name and power limit, and ``{"ok": true, "device": {...}}``.
@@ -215,8 +235,11 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 
-# H100 SXM dense peaks (NVIDIA data sheet), at the full 700 W power limit
+# H100 SXM dense peaks (NVIDIA data sheet), at the full 700 W power limit:
+# bf16 on the tensor cores, fp32 FMA on the CUDA cores (the fp32 kernels'
+# products: TF32 would round the operands), and memory
 PEAK_BF16_FLOPS = 989e12
+PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 
 BATCH = 256
@@ -293,8 +316,9 @@ def timed(fn, library=None, iters: int = 20) -> dict:
     return out
 
 
-def bound_ms(flops: float, nbytes: float) -> tuple[float, str]:
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
+def bound_ms(flops: float, nbytes: float,
+             peak: float = PEAK_BF16_FLOPS) -> tuple[float, str]:
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
 
@@ -334,6 +358,54 @@ def fp32_err(got, ref) -> tuple[float, bool]:
     scale (depth <= 4096 here), so 1e-4 of its largest value."""
     err = (got - ref).abs().max().item()
     return err, err <= 1e-4 * ref.abs().max().item()
+
+
+def f32_check(got, ref) -> tuple[float, float, bool]:
+    """(max |got - ref|, the layer's largest |ref|, within the limit) for
+    an fp32 kernel against its plain version, TF32 off on both sides: the
+    same fp32 products summed in another order, ~sqrt(depth) 2^-24 of the
+    layer's scale at depth <= 4096, so 1e-5 of its largest |ref|.  A TF32
+    run of the same function (operands rounded to 10 bits) errs ~1e-3 of
+    it; ``f32_case`` prints that beside."""
+    err = (got.float() - ref.float()).abs().max().item()
+    scale = ref.float().abs().max().item()
+    return err, scale, err <= 1e-5 * scale
+
+
+def f32_stats_check(got, ref) -> tuple[float, float, bool]:
+    """``f32_check`` for kernel 5's (y, mean, var): y as there, the mean
+    within 1e-5 of y's largest |value|, the variance (E[y^2] - mean^2)
+    within 1e-5 of the layer's largest second moment E[y^2]."""
+    (y, m, v), (yr, mr, vr) = got, ref
+    err, scale, ok = f32_check(y, yr)
+    em = (m - mr).abs().max().item()
+    ev = (v - vr).abs().max().item()
+    ok = (ok and em <= 1e-5 * scale
+          and ev <= 1e-5 * (vr + mr * mr).max().item())
+    return max(err, em, ev), scale, ok
+
+
+def tf32_round(t):
+    """fp32 ``t`` rounded to TF32's 10 mantissa bits, to nearest with ties
+    away from zero (``cvt.rna.tf32.f32``): an operand as a tensor core
+    takes it under TF32."""
+    import torch
+
+    bits = t.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+@contextlib.contextmanager
+def cudnn_tf32(on: bool):
+    """cuDNN's TF32 convolutions on (``on``) or off inside the block."""
+    import torch
+
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = on
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
 
 
 def nbytes(*tensors) -> int:
@@ -701,12 +773,65 @@ def make_generator(preset: str, dev, overrides=None):
     return cfg, g.eval()
 
 
+def run_cli(dev, *argv) -> str:
+    """``tpugan_torch.cli.main`` in process on ``dev``; returns what it
+    printed and logs its last line."""
+    from tpugan_torch import cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        cli.main(["--device", dev.type, *argv])
+    text = buf.getvalue()
+    log(f"[cli] {' '.join(argv[:1])}: {text.strip().splitlines()[-1]}")
+    return text
+
+
+def serve_once(dev, ckpt: str, request: dict) -> dict:
+    """``serve --ckpt`` on 127.0.0.1: serve_forever on this (main) thread,
+    a client thread that waits for /healthz, posts ``request`` to /sample
+    (npy) and then sends SIGTERM, the server's own shutdown path.  Returns
+    what the client read ("health", "npy")."""
+    import socket
+
+    import numpy as np
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    url = f"http://127.0.0.1:{port}"
+    served = {}
+
+    def client():
+        try:
+            for _ in range(600):
+                try:
+                    with urllib.request.urlopen(url + "/healthz",
+                                                timeout=5) as r:
+                        served["health"] = json.loads(r.read())
+                    break
+                except OSError:
+                    time.sleep(0.1)
+            req = urllib.request.Request(
+                url + "/sample", method="POST", data=json.dumps(
+                    {**request, "format": "npy"}).encode())
+            with urllib.request.urlopen(req, timeout=120) as r:
+                served["npy"] = np.load(io.BytesIO(r.read()))
+        finally:
+            os.kill(os.getpid(), signal.SIGTERM)
+
+    th = threading.Thread(target=client, daemon=True)
+    th.start()
+    run_cli(dev, "serve", "--ckpt", ckpt, "--host", "127.0.0.1", "--port",
+            str(port))
+    th.join(timeout=60)
+    require(not th.is_alive() and "npy" in served, "serve --ckpt: no answer")
+    return served
+
+
 def cli_phase(dev, zero_counts, read_counts) -> dict:
     """Phase 15, the CLI and the exported generator: ``dcgan_celeba64`` at
     full width driven in process through ``tpugan_torch.cli.main``, each
     command a path counted from zero.  Returns the phase's numbers."""
-    import contextlib
-    import socket
     import statistics
     import warnings
 
@@ -732,12 +857,7 @@ def cli_phase(dev, zero_counts, read_counts) -> dict:
     found = {}
 
     def run(*argv) -> str:
-        buf = io.StringIO()
-        with contextlib.redirect_stdout(buf):
-            cli.main(["--device", dev.type, *argv])
-        text = buf.getvalue()
-        log(f"[cli] {' '.join(argv[:1])}: {text.strip().splitlines()[-1]}")
-        return text
+        return run_cli(dev, *argv)
 
     # train: 10 steps, kernel 5 in the three BN blocks of each D forward
     zero_counts()
@@ -807,38 +927,9 @@ def cli_phase(dev, zero_counts, read_counts) -> dict:
     require(ok, f"artifact on the card vs on the CPU: max err {err}")
     found["card_vs_cpu_max_err"] = err
 
-    # serve --ckpt on 127.0.0.1: serve_forever on this (main) thread, a
-    # client thread posting, then SIGTERM, the server's own shutdown path
-    with socket.socket() as sock:
-        sock.bind(("127.0.0.1", 0))
-        port = sock.getsockname()[1]
-    url = f"http://127.0.0.1:{port}"
-    served = {}
-
-    def client():
-        try:
-            for _ in range(600):
-                try:
-                    with urllib.request.urlopen(url + "/healthz",
-                                                timeout=5) as r:
-                        served["health"] = json.loads(r.read())
-                    break
-                except OSError:
-                    time.sleep(0.1)
-            req = urllib.request.Request(
-                url + "/sample", method="POST", data=json.dumps(
-                    {"n": 16, "seed": 4, "format": "npy"}).encode())
-            with urllib.request.urlopen(req, timeout=120) as r:
-                served["npy"] = np.load(io.BytesIO(r.read()))
-        finally:
-            os.kill(os.getpid(), signal.SIGTERM)
-
+    # serve --ckpt on 127.0.0.1, answering one request
     zero_counts()
-    th = threading.Thread(target=client, daemon=True)
-    th.start()
-    run("serve", "--ckpt", ckpt, "--host", "127.0.0.1", "--port", str(port))
-    th.join(timeout=60)
-    require(not th.is_alive() and "npy" in served, "serve --ckpt: no answer")
+    served = serve_once(dev, ckpt, {"n": 16, "seed": 4})
     counts = read_counts("cli serve --ckpt")
     require(counts["convt_affine_act"] == 4 and counts["v2"] == 0,
             f"serve --ckpt launches {counts}")
@@ -912,6 +1003,391 @@ def cli_phase(dev, zero_counts, read_counts) -> dict:
     found["sampler_sample_ms"] = time_ms(
         lambda: sampler.sample(BATCH, seed=0), 5)
     log(f"[cli] {json.dumps(found)}")
+    return found
+
+
+def f32_case(kernel: str, shape: str, run, plain, plain_tf32, library,
+             check, flops, byt, **extra) -> dict:
+    """One layer of an fp32 kernel: ``run()`` (the kernel) against
+    ``plain()`` (its plain version) by ``check(got, ref)`` -> (max err,
+    scale, ok).  Beside it, by the same check, two TF32 runs of the same
+    function: ``library()`` (one PyTorch call, its result in the kernel's
+    layout) with cuDNN's TF32 on, where cuDNN may pick a kernel that does
+    not round (it does not for the RGB layers), and ``plain_tf32()`` (the
+    plain version on ``tf32_round``-ed x and w), which rounds on every
+    layer.  Times: the kernel's and the library call's with TF32 off
+    (``timed``), the plain version's, and the bound at the fp32 rate
+    (``PEAK_FP32_FLOPS``)."""
+    import torch
+
+    got, ref = run(), plain()
+    with cudnn_tf32(True):
+        t32 = library()
+    t32_ops = plain_tf32()
+    torch.cuda.synchronize()
+    err, scale, ok = check(got, ref)
+    t32_err = check(t32, ref)[0]
+    t32_ops_err = check(t32_ops, ref)[0]
+    require(ok, f"{kernel} fp32 {shape}: max err {err} (largest |ref| "
+            f"{scale}; the limit is 1e-5 of it)")
+    bms, by = bound_ms(flops, byt, PEAK_FP32_FLOPS)
+    c = dict(**extra, shape=shape, dtype="float32", **timed(run, library),
+             plain_ms=time_ms(plain, 5), bound_ms=bms, bound_by=by,
+             flops=flops, bytes=byt, max_abs_err=err, scale=scale,
+             tf32_max_abs_err=t32_err, tf32_operands_max_abs_err=t32_ops_err)
+    log(f"[fp32] {kernel} {json.dumps(c)}")
+    log(f"[fp32] {kernel} {shape}: max err {err:.3e} ({err / scale:.2e} of "
+        f"the largest |ref|; limit 1e-5), cuDNN TF32 {t32_err:.3e} "
+        f"({t32_err / scale:.2e}), TF32 operands {t32_ops_err:.3e} "
+        f"({t32_ops_err / scale:.2e}); {rate(c)}")
+    return c
+
+
+def f32_summary(cases: list, main: int) -> dict:
+    """A kernel's fp32 case for the ``kernels`` line: the sums of its
+    first ``main`` layer cases (the main path's layers, one forward), the
+    largest errors over all of them, and every case."""
+    keys = ("ms", "device_ms", "plain_ms", "library_ms", "library_device_ms",
+            "bound_ms", "flops", "bytes")
+    out = {k: sum(c[k] for c in cases[:main]) for k in keys}
+    out["bound_by"] = bound_ms(out["flops"], out["bytes"],
+                               PEAK_FP32_FLOPS)[1]
+    out["max_abs_err"] = max(c["max_abs_err"] for c in cases)
+    out["max_rel_err"] = max(c["max_abs_err"] / c["scale"] for c in cases)
+    for key in ("tf32", "tf32_operands"):  # the least over the layers
+        out[f"{key}_min_rel_err"] = min(c[f"{key}_max_abs_err"] / c["scale"]
+                                        for c in cases)
+    return dict(case="fp32", dtype="float32", **out, layers=cases)
+
+
+def fp32_kernels(dev, real) -> dict:
+    """Phase 21 (a): kernels 1, 4 and 5 on fp32 operands at the fp32 path's
+    shapes, each against its plain version (``f32_check``), with the error
+    of a TF32 run of its library call beside: kernel 1 at the four layers
+    of the fp32 ``dcgan_celeba64`` generator at batch 256, on its own
+    activations; kernel 4 at the four layers of its discriminator at batch
+    128 (``real``, fp32 images) and the conditional D's first layer (Cin
+    4); kernel 5 at the three BN layers at batches 128 and 64.  Returns
+    each kernel's ``f32_summary``."""
+    import torch
+    import torch.nn.functional as F
+
+    from tpugan_torch.configs import get_preset
+    from tpugan_torch.models.registry import build_discriminator
+    from tpugan_torch.ops import cuda_conv, cuda_conv_stats, cuda_convt
+    from tpugan_torch.ops import cuda_gen
+    from tpugan_torch.ops.fused import bn_affine
+    from tpugan_torch.sample.sampler import seeded_noise
+
+    f32 = torch.float32
+    out = {}
+    cfg, g = make_generator("dcgan_celeba64", dev,
+                            {"train.precision": "fp32"})
+    require(cfg.model.nz == 100 and cfg.model.ngf == 64
+            and g.head.dense.dtype == f32, "not the fp32 full-width G")
+    z = torch.from_numpy(seeded_noise(cfg.model.nz, BATCH, seed=0)).to(dev)
+    _, blocks, _ = cuda_gen.fold_generator(g)
+    cases = []
+    with torch.no_grad():
+        x = g.head(z)  # fp32 activations, not bf16-valued ones
+        for i, (w, a, b) in enumerate(blocks):
+            act = "tanh" if i == len(blocks) - 1 else "relu"
+            w = w.float().contiguous()
+            xl = x.permute(0, 3, 1, 2)  # NHWC storage = channels_last NCHW
+            wl = w.permute(2, 3, 0, 1).contiguous()
+
+            def library(xl=xl, wl=wl, a=a, b=b, act=act):
+                y = F.conv_transpose2d(xl, wl, stride=2, padding=1)
+                y = y * a.view(1, -1, 1, 1) + b.view(1, -1, 1, 1)
+                y = torch.tanh(y) if act == "tanh" else torch.relu(y)
+                return y.permute(0, 2, 3, 1)
+
+            n, h, wd, cin = x.shape
+            cout = w.shape[3]
+            cases.append(f32_case(
+                "convt_affine_act",
+                f"{n}x{h}x{wd}x{cin}->{2 * h}x{2 * wd}x{cout}",
+                lambda x=x, w=w, a=a, b=b, act=act:
+                    cuda_convt.convt_affine_act(x, w, a, b, act=act),
+                lambda x=x, w=w, a=a, b=b, act=act:
+                    cuda_convt.convt_affine_act_plain(x, w, a, b, act=act),
+                lambda x=x, w=w, a=a, b=b, act=act:
+                    cuda_convt.convt_affine_act_plain(
+                        tf32_round(x), tf32_round(w), a, b, act=act),
+                library, f32_check, 2 * n * 16 * h * wd * cin * cout,
+                nbytes(x, w, a, b) + n * 4 * h * wd * cout * 4))
+            x = cuda_convt.convt_affine_act_plain(x, w, a, b, act=act)
+    out["convt_affine_act"] = f32_summary(cases, len(blocks))
+    del g
+
+    dcfg = get_preset("dcgan_celeba64")
+    d = build_discriminator(dcfg.model, "fp32", device=dev,
+                            generator=torch.Generator(device=dev)
+                            .manual_seed(1)).eval()
+    ccfg = get_preset("cdcgan_celeba64")
+    cd = build_discriminator(ccfg.model, "fp32", device=dev,
+                             generator=torch.Generator(device=dev)
+                             .manual_seed(2)).eval()
+    # the conditional D's first layer: the image and a label plane
+    plane = (torch.arange(real.shape[0], device=dev) % 2).float()
+    x4 = torch.cat([real, plane.view(-1, 1, 1, 1).expand(
+        *real.shape[:3], 1)], dim=-1).contiguous()
+
+    def conv_one(x, w, a, b, leak, **extra):
+        n, h, wd, cin = x.shape
+        cout = w.shape[3]
+        xl = x.permute(0, 3, 1, 2)
+        wl = w.permute(3, 2, 0, 1).contiguous(
+            memory_format=torch.channels_last)
+
+        def library():
+            y = F.conv2d(xl, wl, stride=2, padding=1)
+            y = y * a.view(1, -1, 1, 1) + b.view(1, -1, 1, 1)
+            return F.leaky_relu(y, leak).permute(0, 2, 3, 1)
+
+        flops, byt = conv_work(x, w, n * (h // 2) * (wd // 2) * cout * 4)
+        return f32_case(
+            "conv_affine_act", f"{n}x{h}x{wd}x{cin}->{h // 2}x{wd // 2}x"
+            f"{cout}",
+            lambda: cuda_conv.conv_affine_act(x, w, a, b, leak=leak),
+            lambda: cuda_conv.conv_affine_act_plain(x, w, a, b, leak=leak),
+            lambda: cuda_conv.conv_affine_act_plain(
+                tf32_round(x), tf32_round(w), a, b, leak=leak),
+            library, f32_check, flops, byt + nbytes(a, b), **extra)
+
+    def stats_one(x, w):
+        n, h, wd, cin = x.shape
+        cout = w.shape[3]
+        xl = x.permute(0, 3, 1, 2)
+        wl = w.permute(3, 2, 0, 1).contiguous(
+            memory_format=torch.channels_last)
+
+        def library():
+            y = F.conv2d(xl, wl, stride=2, padding=1)
+            var, mean = torch.var_mean(y, dim=(0, 2, 3), correction=0)
+            return y.permute(0, 2, 3, 1), mean, var
+
+        flops, byt = conv_work(x, w, (n * (h // 2) * (wd // 2) + 2) * cout
+                               * 4)
+        return f32_case(
+            "conv_stats", f"{n}x{h}x{wd}x{cin}->{h // 2}x{wd // 2}x{cout}",
+            lambda: cuda_conv_stats.conv_stats(x, w),
+            lambda: cuda_conv_stats.conv_stats_plain(x, w),
+            lambda: cuda_conv_stats.conv_stats_plain(tf32_round(x),
+                                                     tf32_round(w)),
+            library, f32_stats_check,
+            flops + 3 * n * (h // 2) * (wd // 2) * cout, byt)
+
+    def folded(blk):
+        """(w, a, b) of a DBlock in eval mode: BN folded, or (1, bias)."""
+        w = blk.conv.w.float().contiguous()
+        if blk.bn is None:
+            return w, torch.ones_like(w[0, 0, 0]), blk.conv.b.float()
+        return (w, *bn_affine(blk.bn.scale, blk.bn.bias, blk.bn.mean,
+                              blk.bn.var, blk.bn.eps))
+
+    def chain(x):
+        """(block, its input, w, a, b) down D from images ``x``, each input
+        the plain version's output of the block before."""
+        out = []
+        for blk in d.blocks:
+            w, a, b = folded(blk)
+            out.append((blk, x, w, a, b))
+            x = cuda_conv.conv_affine_act_plain(x, w, a, b,
+                                                leak=blk.act.slope)
+        return out
+
+    with torch.no_grad():
+        layers = chain(real)
+        conv_cases = [conv_one(x, w, a, b, blk.act.slope)
+                      for blk, x, w, a, b in layers]
+        blk0 = cd.d.block0
+        conv_cases.append(conv_one(x4, *folded(blk0), blk0.act.slope,
+                                   path="narrow"))
+        # kernel 5 at 128, then at a grad_accum=2 microbatch of 64
+        stats_cases = [stats_one(x, w) for batch in (layers, chain(real[:64]))
+                       for blk, x, w, _, _ in batch if blk.bn is not None]
+    out["conv_affine_act"] = f32_summary(conv_cases, len(d.blocks))
+    n_bn = sum(blk.bn is not None for blk in d.blocks)
+    out["conv_stats"] = f32_summary(stats_cases, n_bn)
+    return out
+
+
+def fp32_phase(dev, train_data, zero_counts, read_counts) -> dict:
+    """Phase 21, ``train.precision="fp32"`` with ``train.kernels="pallas"``
+    on the card: the fp32 kernels at the path's shapes (``fp32_kernels``);
+    full-width ``dcgan_celeba64`` trained with ``fuse_stats`` on and off
+    from one seed (step 1's losses within 1e-3; exactly 9 kernel-5
+    launches a step; steps timed in turns); the trained D in eval mode
+    under "pallas" against "xla" (4 kernel-4 launches a forward); the eval
+    G's module path under "pallas" against "xla" (4 kernel-1 launches);
+    the exported fp32 artifact's ``generate(256)`` (4 kernel-1 launches,
+    the module path's bits) and ``Sampler.sample(256)`` (one v2 launch,
+    against v2's plain version); the CLI's ``train`` / ``sample`` / ``serve
+    --ckpt`` with ``tests/test_torch_port_cli.py``'s settings
+    (``dcgan_mnist``, fp32, pallas).  Each path counted from zero, its
+    name starting "fp32 ".  Returns each kernel's fp32 case."""
+    import numpy as np
+    import torch
+
+    from tpugan_torch import cli
+    from tpugan_torch.configs import get_preset
+    from tpugan_torch.export import export_generator, load_generator
+    from tpugan_torch.ops import convs, cuda_gen2
+    from tpugan_torch.sample.sampler import Sampler
+    from tpugan_torch.train.trainer import Trainer
+
+    t0 = time.time()
+    real = torch.from_numpy(train_data["images"][:TRAIN_BATCH]).to(dev)
+    real = real.float() / 127.5 - 1.0
+    found = fp32_kernels(dev, real)
+    log(f"[fp32] kernels in {time.time() - t0:.1f}s")
+
+    # -- training, fuse_stats on and off from one seed -----------------
+    base = get_preset("dcgan_celeba64").override({
+        "data.dataset": "synthetic", "data.synthetic_size": 10 * TRAIN_BATCH,
+        "train.precision": "fp32", "train.kernels": "pallas",
+        "train.ckpt_every": 0, "train.log_every": 1,
+        "train.sample_every": 10})
+    require(base.model.nz == 100 and base.model.ngf == 64
+            and base.model.ndf == 64 and base.data.batch_size == TRAIN_BATCH
+            and base.model.d_batchnorm,
+            "not the full-width dcgan_celeba64 configuration")
+    cfgs = {m: base.override({
+        "train.fuse_stats": m,
+        "train.out_dir": str(ROOT / "chiprun_out" / f"smoke_fp32_{m}"),
+        "train.ckpt_dir": str(RUNS / f"fp32_{m}")}) for m in ("off", "on")}
+    zero_counts()
+    trs = {m: Trainer(cfgs[m], data=train_data, device=dev) for m in cfgs}
+    require(trs["on"].d.blocks[1].conv.dtype == torch.float32,
+            "the fp32 run's D is not fp32")
+    first = {m: trs[m].train(1) for m in ("off", "on")}
+    # fp32 sums in another order in three BN blocks: ~1e-6 relative in the
+    # logits; loss_g is taken after D's first Adam update, which moves
+    # weights whose gradient is sum-order noise by up to lr: 1e-3
+    for k in ("loss_d", "loss_g", "d_real", "d_fake"):
+        log(f"[fp32] step 1 {k}: fuse on {first['on'][k]:.7f} off "
+            f"{first['off'][k]:.7f}")
+        require(abs(first["on"][k] - first["off"][k]) <= 1e-3,
+                f"fp32 step 1 {k}: fuse on {first['on'][k]} vs off "
+                f"{first['off'][k]}")
+    metrics, times = [], {"on": [], "off": []}
+    for mode in ("off", "on", "on", "off"):  # in turns, on one card
+        times[mode].append(run_steps(trs[mode], 10, train_data, metrics))
+    require(bool(torch.isfinite(torch.stack(
+        [v for m in metrics for v in m.values()])).all()),
+        "non-finite fp32 step metrics")
+    counts = read_counts("fp32 train dcgan_celeba64")
+    steps_on = trs["on"].state.step
+    require(counts["conv_stats"] == 9 * steps_on,
+            f"{counts['conv_stats']} kernel-5 launches in {steps_on} fp32 "
+            f"steps, not 9 a step")
+    for mode in ("on", "off"):
+        ms = sum(times[mode]) / len(times[mode])
+        found[f"train_{mode}_ms"] = ms
+        log(f"[fp32] train fuse_stats={mode}: {ms:.4f} ms/step "
+            f"({TRAIN_BATCH * 1e3 / ms:.1f} images/s; runs "
+            f"{', '.join(f'{t:.4f}' for t in times[mode])} ms/step)")
+
+    # -- the trained D in eval mode, "pallas" against "xla" ------------
+    g, d, cfg = trs["on"].g.eval(), trs["on"].d.eval(), cfgs["on"]
+    sampler = Sampler(cfg, g)
+    fake = torch.from_numpy(sampler.sample(TRAIN_BATCH, seed=1)).to(dev)
+    zero_counts()
+    scores = {}
+    with torch.no_grad():
+        for impl in ("pallas", "xla"):
+            with convs.using_impl(impl):
+                scores[impl] = [d(x).float() for x in (real, fake)]
+    counts = read_counts("fp32 eval D dcgan_celeba64")
+    require(counts["conv_affine_act"] == 2 * len(d.blocks) == 8,
+            f"fp32 eval D: {counts['conv_affine_act']} kernel-4 launches "
+            f"for 2 forwards")
+    for got, ref in zip(scores["pallas"], scores["xla"]):
+        err = (got - ref).abs()
+        # fp32 sums in another order and BN folded into the epilogue
+        require(bool(torch.isfinite(got).all()
+                     and (err <= 1e-4 * (1 + ref.abs())).all()),
+                f"fp32 eval D: pallas and xla differ by {err.max().item()}")
+    found["eval_d_err"] = max((a - b).abs().max().item()
+                              for a, b in zip(scores["pallas"],
+                                              scores["xla"]))
+
+    # -- the eval G: module path, artifact, Sampler ---------------------
+    zn = sampler.noise(BATCH, seed=0)
+    zd = torch.from_numpy(zn).to(dev)
+    zero_counts()
+    with torch.no_grad(), convs.using_impl("pallas"):
+        img_p = g(zd).float()
+    counts = read_counts("fp32 eval G module path")
+    require(counts["convt_affine_act"] == 4, f"fp32 module path: {counts}")
+    with torch.no_grad(), convs.using_impl("xla"):
+        img_x = g(zd).float()
+    found["module_path_err"] = (img_p - img_x).abs().max().item()
+    # tanh images: fp32 sums in another order through five layers
+    require(found["module_path_err"] <= 1e-4,
+            f"fp32 module path pallas vs xla: {found['module_path_err']}")
+    art = load_generator(export_generator(cfg, g), device=dev)
+    zero_counts()
+    img = art.generate(zn)
+    counts = read_counts("fp32 artifact generate")
+    require(counts["convt_affine_act"] == 4 and counts["v2"] == 0,
+            f"fp32 artifact generate({BATCH}): {counts}")
+    require(np.array_equal(img, img_p.cpu().numpy()),
+            "fp32 artifact vs the module path under pallas")
+    found["artifact_generate_ms"] = time_ms(lambda: art.generate(zn), 5)
+    zero_counts()
+    s_img = sampler.sample(BATCH, seed=0)
+    counts = read_counts("fp32 Sampler.sample")
+    require(counts["v2"] == 1, f"fp32 Sampler.sample: {counts}")
+    with torch.no_grad():
+        hd, bl, (ss, cc), zz = cuda_gen2.fold_inputs(g, zd)
+        ref = cuda_gen2.depth_to_space(cuda_gen2.generator_forward_plain(
+            zz, hd, bl, ss, cc))
+    err, ok = image_err(torch.from_numpy(s_img).to(dev), ref)
+    require(ok, f"fp32 Sampler.sample against v2's plain version: {err}")
+    found["sampler_err"] = err
+    found["sampler_sample_ms"] = time_ms(
+        lambda: sampler.sample(BATCH, seed=0), 5)
+    del trs, g, d, art, sampler
+
+    # -- the CLI test's settings on the card -----------------------------
+    out_dir = RUNS / "fp32_cli"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    sets = ["data.dataset=synthetic", "data.batch_size=8",
+            "data.synthetic_size=32", "model.ngf=8", "model.ndf=8",
+            "model.nz=8", "train.total_steps=3", "train.log_every=3",
+            "train.sample_every=0", "train.ckpt_every=3",
+            "train.precision=fp32", "train.kernels=pallas"]
+    flags = [a for x in sets for a in ("--set", x)]
+    ckpt = str(out_dir / "run" / "ckpt")
+    zero_counts()
+    final = json.loads(run_cli(dev, "train", "dcgan_mnist", "--out",
+                               str(out_dir / "run"), *flags
+                               ).strip().splitlines()[-1])["final"]
+    read_counts("fp32 cli train dcgan_mnist")
+    require(np.isfinite(final["loss_d"]) and np.isfinite(final["loss_g"]),
+            f"fp32 cli train: {final}")
+    zero_counts()
+    run_cli(dev, "sample", "--ckpt", ckpt, "--n", "4", "--seed", "5",
+            "--out", str(out_dir / "g.png"))
+    counts = read_counts("fp32 cli sample")
+    require(counts["v2"] == 1, f"fp32 cli sample: {counts}")
+    mcfg, mg, _ = cli._load_generator_from_ckpt(ckpt, dev)
+    mg.eval()
+    zero_counts()
+    served = serve_once(dev, ckpt, {"n": 16, "seed": 4})
+    counts = read_counts("fp32 cli serve --ckpt")
+    require(counts["convt_affine_act"] == len(mg.blocks) + 1
+            and counts["v2"] == 0, f"fp32 serve --ckpt: {counts}")
+    local = Sampler(mcfg.override({"train.kernels": "xla"}), mg).sample(
+        16, seed=4)
+    found["serve_err"] = float(np.abs(served["npy"] - local).max())
+    require(found["serve_err"] <= 1e-4,
+            f"fp32 serve --ckpt against the module path under xla: "
+            f"{found['serve_err']}")
+    log(f"[fp32] phase 21 in {time.time() - t0:.1f}s: "
+        f"{json.dumps({k: v for k, v in found.items() if not isinstance(v, dict)})}")
     return found
 
 
@@ -1926,7 +2402,7 @@ def main() -> int:
             # the wrapper's host time through the registered op against
             # the route without the dispatcher (checks, then the launch)
             c["direct_ms"] = time_ms(lambda: (
-                cuda_convt._check(x, wb, a, b, act),
+                cuda_convt._check(x, wb, a, b, act, bf),
                 cuda_convt._launch(x, wb, a, b, act, 0.2, bf)), 20)
             cases.append(c)
             log(f"[kernel] convt_affine_act {json.dumps(c)}")
@@ -3272,11 +3748,19 @@ def main() -> int:
     torch.cuda.empty_cache()
     examples_phase(zero_counts, add_counts)
 
-    # -- 21. report ---------------------------------------------------------
+    # -- 21. fp32 operands: train.precision="fp32" under "pallas" ------------
+    torch.cuda.empty_cache()
+    fp32_found = fp32_phase(dev, train_data, zero_counts, read_counts)
+
+    # -- 22. report ---------------------------------------------------------
     for key, rep_k in report.items():
         by_path = {p: c[key] for p, c in path_counts.items() if c[key]}
         rep_k["launches"] = sum(by_path.values())
         rep_k["launches_by_path"] = by_path
+        if key in fp32_found:  # kernels 1, 4, 5: their fp32 case
+            fp32_found[key]["launches"] = sum(
+                n for p, n in by_path.items() if p.startswith("fp32 "))
+            rep_k["cases"].append(fp32_found[key])
     order = ("name", "route", "source", "replaces", "launches",
              "launches_by_path", "max_abs_err", "ms", "device_ms", "plain_ms",
              "bound_ms", "bound_by", "library_ms", "library_device_ms",

@@ -127,8 +127,13 @@ def test_convt_kernel_refuses_what_it_does_not_take(cuda):
     x = torch.zeros(2, 4, 4, 8, device=cuda)
     w = torch.zeros(4, 4, 8, 8, device=cuda)
     one, zero = torch.ones(8, device=cuda), torch.zeros(8, device=cuda)
-    with pytest.raises(ValueError, match="bf16"):
-        cuda_convt.convt_affine_act(x, w, one, zero)
+    # fp32 operands run the fp32 kernel; fp16 and mixed dtypes are refused
+    before = cuda_convt.launches
+    cuda_convt.convt_affine_act(x, w, one, zero)
+    assert cuda_convt.launches == before + 1
+    for xd, wd in ((torch.float16, torch.float16), (torch.float32, BF)):
+        with pytest.raises(ValueError, match="one dtype, bf16 or fp32"):
+            cuda_convt.convt_affine_act(x.to(xd), w.to(wd), one, zero)
     with pytest.raises(ValueError, match="out_dtype"):
         cuda_convt.convt_affine_act(x.to(BF), w.to(BF), one, zero,
                                     out_dtype=torch.float16)
@@ -403,6 +408,189 @@ def test_conv_kernels_take_unaligned_operands(cuda):
     assert torch.equal(got3, ref3)
 
 
+# ---------------------------------------------------------------------------
+# fp32 operands (train.precision="fp32"): the FFMA kernels of igemm_f32.cuh
+# ---------------------------------------------------------------------------
+
+F32 = torch.float32
+
+
+@pytest.fixture()
+def cuda_f32(cuda):
+    """The card with TF32 off in cuDNN too, so that every fp32 reference
+    (the plain versions' matmuls, PyTorch's conv gradients) is full fp32."""
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    yield cuda
+    torch.backends.cudnn.allow_tf32 = prev
+
+
+def assert_f32_kernel_close(got, ref, scale=None):
+    """An fp32 kernel against its plain version: the same fp32 products,
+    fp32 sums in another order (~sqrt(depth) 2^-24 of the layer's scale at
+    depth <= 4096): 1e-5 of the layer's largest |value| (chip_smoke's
+    f32_check), ``scale`` where given: the largest before a tanh, which
+    squeezes the result's largest towards 1 but passes a difference in its
+    argument through at a slope up to 1.  A TF32 product errs ~3e-4 of
+    it."""
+    err = (got.float() - ref.float()).abs().max().item()
+    scale = ref.float().abs().max().item() if scale is None else scale
+    assert err <= 1e-5 * scale, f"max err {err}, scale {scale}"
+
+
+def _pre_tanh_scale(plain, act, *args, **kw):
+    """The layer's largest |value| before the activation, for a tanh."""
+    if act != "tanh":
+        return None
+    return plain(*args, act="none", **kw).abs().max().item()
+
+
+def _f32_operands(cuda, n, h, w, cin, cout, seed):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    x = _rand((n, h, w, cin), gen, cuda)
+    wt = _rand((4, 4, cin, cout), gen, cuda, 0.1)
+    return gen, x, wt
+
+
+# the main path's layers (batch cut to 2) and edge shapes: Cin 1, 3, 5 and
+# 33 (not a multiple of 4: 4-byte copies), Cout 1, 3, 7 and 40 (the narrow
+# tile; a ragged 64-wide tile), a row wider than a tile (160), batch 1
+CONVT_F32_SHAPES = CONVT_SHAPES + [(2, 3, 160, 5, 1), (1, 6, 6, 1, 12)]
+CONV_F32_SHAPES = CONV_SHAPES + D_SHAPES + NEW_D_SHAPES + [
+    (2, 6, 10, 1, 1), (1, 2, 2, 5, 9)]
+
+
+@pytest.mark.parametrize("act", ["relu", "leaky_relu", "tanh", "none"])
+@pytest.mark.parametrize("out_dtype", [F32, BF])
+@pytest.mark.parametrize("n,h,w,cin,cout", CONVT_F32_SHAPES)
+def test_convt_f32_kernel_matches_plain(cuda_f32, n, h, w, cin, cout, act,
+                                        out_dtype):
+    gen, x, wt = _f32_operands(cuda_f32, n, h, w, cin, cout, n * 100 + cin)
+    a, b = _rand((cout,), gen, cuda_f32), _rand((cout,), gen, cuda_f32)
+    before = cuda_convt.launches
+    got = cuda_convt.convt_affine_act(x, wt, a, b, act=act, leak=0.1,
+                                      out_dtype=out_dtype)
+    assert cuda_convt.launches == before + 1
+    ref = cuda_convt.convt_affine_act_plain(x, wt, a, b, act=act, leak=0.1,
+                                            out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    assert got.dtype == out_dtype and got.shape == (n, 2 * h, 2 * w, cout)
+    if out_dtype == F32:
+        assert_f32_kernel_close(got, ref, _pre_tanh_scale(
+            cuda_convt.convt_affine_act_plain, act, x, wt, a, b))
+    else:
+        assert_bf16_close(got, ref)
+
+
+@pytest.mark.parametrize("act", ["leaky_relu", "tanh"])
+@pytest.mark.parametrize("out_dtype", [F32, BF])
+@pytest.mark.parametrize("n,h,w,cin,cout", CONV_F32_SHAPES)
+def test_conv_f32_kernel_matches_plain(cuda_f32, n, h, w, cin, cout, act,
+                                       out_dtype):
+    gen, x, wt = _f32_operands(cuda_f32, n, h, w, cin, cout, n * 10 + cin)
+    a, b = _rand((cout,), gen, cuda_f32), _rand((cout,), gen, cuda_f32)
+    before = cuda_conv.launches
+    got = cuda_conv.conv_affine_act(x, wt, a, b, act=act, leak=0.1,
+                                    out_dtype=out_dtype)
+    assert cuda_conv.launches == before + 1
+    ref = cuda_conv.conv_affine_act_plain(x, wt, a, b, act=act, leak=0.1,
+                                          out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    assert got.dtype == out_dtype and got.shape == (n, h // 2, w // 2, cout)
+    if out_dtype == F32:
+        assert_f32_kernel_close(got, ref, _pre_tanh_scale(
+            cuda_conv.conv_affine_act_plain, act, x, wt, a, b))
+    else:
+        assert_bf16_close(got, ref)
+
+
+@pytest.mark.parametrize("n,h,w,cin,cout",
+                         CONV_SHAPES + [(3, 12, 20, 96, 136),
+                                        (2, 6, 10, 1, 1)]
+                         + BATCH_STATS_SHAPES)
+def test_conv_stats_f32_kernel_matches_plain(cuda_f32, n, h, w, cin, cout):
+    _, x, wt = _f32_operands(cuda_f32, n, h, w, cin, cout, n * 10 + cout)
+    x = x + 0.5  # an offset mean: E[y^2] - mean^2 cancels
+    before = cuda_conv_stats.launches
+    y, mean, var = cuda_conv_stats.conv_stats(x, wt)
+    assert cuda_conv_stats.launches == before + 1
+    yr, mr, vr = cuda_conv_stats.conv_stats_plain(x, wt)
+    torch.cuda.synchronize()
+    assert y.dtype == F32
+    assert_f32_kernel_close(y, yr)
+    # the statistics of the fp32 sums on both sides, summed in another
+    # order: the mean within 1e-5 of y's largest, the variance within 1e-5
+    # of the largest second moment E[y^2] (its cancellation's scale)
+    scale = yr.abs().max().item()
+    assert (mean - mr).abs().max().item() <= 1e-5 * scale
+    assert (var - vr).abs().max().item() <= 1e-5 * (vr + mr * mr).max().item()
+    assert bool((var >= 0).all())
+    # no atomics: the same bits on a second run
+    y2, mean2, var2 = cuda_conv_stats.conv_stats(x, wt)
+    assert torch.equal(y, y2) and torch.equal(mean, mean2)
+    assert torch.equal(var, var2)
+
+
+@pytest.mark.parametrize("n,h,w,cin,cout", [(2, 4, 4, 512, 256),
+                                            (2, 32, 32, 64, 3),
+                                            (4, 8, 8, 256, 512)])
+def test_f32_kernels_give_the_same_bits_twice(cuda_f32, n, h, w, cin, cout):
+    """Each thread sums its depth in order, with no atomics: two runs of
+    kernels 1 and 4 agree bit for bit."""
+    gen, x, wt = _f32_operands(cuda_f32, n, h, w, cin, cout, cin + cout)
+    a, b = _rand((cout,), gen, cuda_f32), _rand((cout,), gen, cuda_f32)
+    for fn in (cuda_convt.convt_affine_act, cuda_conv.conv_affine_act):
+        runs = [fn(x, wt, a, b, act="none") for _ in range(2)]
+        torch.cuda.synchronize()
+        assert torch.equal(runs[0], runs[1])
+
+
+def test_f32_kernels_take_unaligned_operands(cuda_f32):
+    """fp32 operands 4 bytes off 16-byte alignment, read as they are: the
+    copies fall back to 4 bytes, the same values."""
+    n, h, w, cin, cout = 2, 8, 8, 64, 32
+    gen, x, wt = _f32_operands(cuda_f32, n, h, w, cin, cout, 9)
+    xs = torch.empty(x.numel() + 1, device=cuda_f32)[1:].view(x.shape)
+    ws = torch.empty(wt.numel() + 1, device=cuda_f32)[1:].view(wt.shape)
+    xs.copy_(x)
+    ws.copy_(wt)
+    assert xs.data_ptr() % 16 and ws.data_ptr() % 16
+    a, b = _rand((cout,), gen, cuda_f32), _rand((cout,), gen, cuda_f32)
+    for fn in (cuda_convt.convt_affine_act, cuda_conv.conv_affine_act):
+        got, ref = fn(xs, ws, a, b, act="none"), fn(x, wt, a, b, act="none")
+        torch.cuda.synchronize()
+        assert torch.equal(got, ref)
+    got = cuda_conv_stats.conv_stats(xs, ws)
+    ref = cuda_conv_stats.conv_stats(x, wt)
+    torch.cuda.synchronize()
+    assert all(torch.equal(g, r) for g, r in zip(got, ref))
+
+
+def test_conv_bn_stats_f32_backward_matches_autograd_of_plain(cuda_f32):
+    """fp32 operands: the fused op's backward (PyTorch's conv gradients of
+    the unfused VJP, in fp32, TF32 off) against autograd through the plain
+    composition: the same fp32 function, sums in another order."""
+    gen = torch.Generator(device=cuda_f32).manual_seed(7)
+    x32 = _rand((4, 16, 16, 64), gen, cuda_f32)
+    w32 = _rand((4, 4, 64, 128), gen, cuda_f32, 0.05)
+    cw = _rand((128,), gen, cuda_f32)
+    gx_ref, gw_ref = _plain_grads(x32, w32, cw)
+    xk, wk = x32.clone().requires_grad_(), w32.clone().requires_grad_()
+    before = cuda_conv_stats.launches
+    out = cuda_conv_stats.conv_bn_stats(xk, wk)
+    gx, gw = torch.autograd.grad(_pulled(*out, cw), (xk, wk))
+    assert cuda_conv_stats.launches == before + 1
+    torch.cuda.synchronize()
+    assert out[0].dtype == gx.dtype == gw.dtype == F32
+    # fp32 throughout: the forward's sum order (1e-6 relative) carried
+    # through tanh and the statistics into the cotangent, and cuDNN's
+    # gradient sums in another order than the plain matmuls': 1e-5 of
+    # each gradient's scale (a bf16 run errs ~1e-2 of it)
+    for got, ref in ((gx, gx_ref), (gw, gw_ref)):
+        err = (got - ref).abs().max().item()
+        assert err <= 1e-5 * ref.abs().max().item(), err
+
+
 def test_conv_bn_stats_backward_matches_autograd_of_plain(cuda):
     """The fused op's backward (PyTorch conv gradients of the unfused VJP)
     against autograd through the plain composition, in fp32."""
@@ -546,10 +734,17 @@ def test_conv_kernels_refuse_what_they_do_not_take(cuda):
     x = torch.zeros(2, 8, 8, 8, device=cuda)
     w = torch.zeros(4, 4, 8, 8, device=cuda)
     one, zero = torch.ones(8, device=cuda), torch.zeros(8, device=cuda)
-    with pytest.raises(ValueError, match="bf16"):
-        cuda_conv.conv_affine_act(x, w, one, zero)
-    with pytest.raises(ValueError, match="bf16"):
-        cuda_conv_stats.conv_stats(x, w)
+    # fp32 operands run the fp32 kernels; fp16 and mixed dtypes are refused
+    before = (cuda_conv.launches, cuda_conv_stats.launches)
+    cuda_conv.conv_affine_act(x, w, one, zero)
+    cuda_conv_stats.conv_stats(x, w)
+    assert (cuda_conv.launches, cuda_conv_stats.launches) == (
+        before[0] + 1, before[1] + 1)
+    for xd, wd in ((torch.float16, torch.float16), (BF, torch.float32)):
+        with pytest.raises(ValueError, match="one dtype, bf16 or fp32"):
+            cuda_conv.conv_affine_act(x.to(xd), w.to(wd), one, zero)
+        with pytest.raises(ValueError, match="one dtype, bf16 or fp32"):
+            cuda_conv_stats.conv_stats(x.to(xd), w.to(wd))
     with pytest.raises(ValueError, match="out_dtype"):
         cuda_conv.conv_affine_act(x.to(BF), w.to(BF), one, zero,
                                   out_dtype=torch.float16)

@@ -30,11 +30,16 @@
 //     Cout rounded up to 64) stays in shared memory as N-major boxes, so a
 //     tile is ceil(16 Cin / 64) m64n64k16 wgmma stages of four per 64
 //     output channels, with the wide kernel's epilogue.
+//
+// fp32 operands (train.precision="fp32"): tg_conv_affine_act_f32 runs the
+// conv on the FFMA mainloop of igemm_f32.cuh (any Cin and Cout, operands
+// as they are) with the same affine + activation epilogue.
 #include <cuda_runtime.h>
 
 #include <algorithm>
 
 #include "conv_sm90.cuh"
+#include "igemm_f32.cuh"
 
 namespace {
 
@@ -335,4 +340,23 @@ extern "C" int tg_conv_affine_act(const void* x, const void* wt,
                               leak, plan[2], s)
                  : run<tg::sm90::bf16>(x, wt, a, b, y, n, h, w, cin, cout,
                                        ldb, act, leak, plan[2], s);
+}
+
+// x (n, h, w, cin) fp32, wt (4, 4, cin, ldb) fp32 (ldb >= cout; any cin and
+// cout >= 1, any alignment), a/b (cout,) f32 -> y (n, h/2, w/2, cout) bf16
+// (out_f32 = 0) or f32 (out_f32 = 1): fp32 products, fp32 sums.
+extern "C" int tg_conv_affine_act_f32(const float* x, const float* wt,
+                                      const float* a, const float* b, void* y,
+                                      int n, int h, int w, int cin, int cout,
+                                      int ldb, int act, float leak,
+                                      int out_f32, void* stream) {
+  if (h < 2 || w < 2 || h % 2 || w % 2)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const tg::f32::Gemm G = tg::f32::conv_gemm(x, wt, n, h, w, cin, cout, ldb);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(
+      out_f32 ? tg::f32::run_affine_act(G, 1, a, b, act, leak,
+                                        static_cast<float*>(y), s)
+              : tg::f32::run_affine_act(G, 1, a, b, act, leak,
+                                        static_cast<tg::sm90::bf16*>(y), s));
 }

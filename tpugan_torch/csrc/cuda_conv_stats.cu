@@ -28,9 +28,17 @@
 // cluster (conv_sm90.cuh, planned by tg_conv_stats_plan at the card's SM
 // count), reduced in rank order: still two launches, still the same bits on
 // every run.
+//
+// fp32 operands (train.precision="fp32"): tg_conv_stats_f32 runs the conv
+// on the FFMA mainloop of igemm_f32.cuh; its epilogue takes each tile's
+// per-channel partial sums of y and y^2 from the fp32 accumulators (over
+// each thread's rows, then across the tile's row threads through shared
+// memory, in a fixed order), writes y in fp32, and the same reduce kernel
+// makes the mean and variance.
 #include <cuda_runtime.h>
 
 #include "conv_sm90.cuh"
+#include "igemm_f32.cuh"
 
 namespace {
 
@@ -145,6 +153,59 @@ stats_reduce_kernel(const float* part, int tiles_m, int cout, double count,
   }
 }
 
+// The fp32 conv tile and its per-channel partial sums, as conv_stats_kernel
+// writes them: part[c * tiles_m + tm] (sums of y) and part[(cout + c) *
+// tiles_m + tm] (of y^2) over the tile's valid rows.
+template <class T, bool VA, bool VB>
+__global__ void __launch_bounds__(tg::f32::kThreads)
+conv_stats_f32_kernel(tg::f32::Gemm G, float* y, float* part) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const int tiles_n = (G.cout + T::BN - 1) / T::BN;
+  const int tiles_m = (G.rows + T::BM - 1) / T::BM;
+  const int tm = blockIdx.x / tiles_n, n0 = (blockIdx.x - tm * tiles_n) * T::BN;
+  float acc[T::TM][T::TN];
+  tg::f32::gemm_tile<T, VA, VB>(G, 0, tm * T::BM, n0, smem, acc);
+
+  constexpr int TR = tg::f32::kThreads / T::TC;
+  const int tr = threadIdx.x / T::TC, tc = threadIdx.x % T::TC;
+  float s[T::TN], q[T::TN];
+#pragma unroll
+  for (int j = 0; j < T::TN; ++j) s[j] = q[j] = 0.f;
+#pragma unroll
+  for (int i = 0; i < T::TM; ++i) {
+    const int r = tm * T::BM + tr * T::TM + i;
+    if (r >= G.rows) continue;
+    float* row = y + static_cast<long long>(r) * G.cout;
+#pragma unroll
+    for (int j = 0; j < T::TN; ++j) {
+      const int n = n0 + tc * T::TN + j;
+      const float v = acc[i][j];
+      s[j] += v;
+      q[j] = fmaf(v, v, q[j]);
+      if (n < G.cout) row[n] = v;
+    }
+  }
+  // the row threads' sums, added in order of their rows
+  float* red = smem;  // [2][TR][BN]: the mainloop's buffers are free
+#pragma unroll
+  for (int j = 0; j < T::TN; ++j) {
+    red[tr * T::BN + tc * T::TN + j] = s[j];
+    red[(TR + tr) * T::BN + tc * T::TN + j] = q[j];
+  }
+  __syncthreads();
+  const int n = n0 + threadIdx.x;
+  if (threadIdx.x < T::BN && n < G.cout) {
+    float sn = 0.f, qn = 0.f;
+    for (int r = 0; r < TR; ++r) {
+      sn += red[r * T::BN + threadIdx.x];
+      qn += red[(TR + r) * T::BN + threadIdx.x];
+    }
+    part[static_cast<long long>(n) * tiles_m + tm] = sn;
+    part[static_cast<long long>(G.cout + n) * tiles_m + tm] = qn;
+  }
+}
+
 }  // namespace
 
 // The plan of a launch on an (n, h, w, cin) input with cin % 64 == 0, on a
@@ -180,6 +241,40 @@ extern "C" int tg_conv_stats(const void* x, const void* wt, void* y,
           : launch_conv<64, 4>(conv_stats_kernel<64, 4>, L, splits, s, xmap,
                                wmap, L, yb, part);
   if (e == cudaSuccess) e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  stats_reduce_kernel<<<cout, kReduceThreads, 0, s>>>(
+      part, tiles_m, cout, static_cast<double>(n) * (h / 2) * (w / 2), stats);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The row tiles of tg_conv_stats_f32 on an (n, h, w, cin) input with cout
+// channels: the caller's scratch holds 2 * cout * tiles floats.
+extern "C" int tg_conv_stats_f32_tiles(int n, int h, int w, int cout) {
+  return tg::f32::tiles_m(n * (h / 2) * (w / 2), cout);
+}
+
+// x (n, h, w, cin) fp32, wt (4, 4, cin, ldb) fp32 (ldb >= cout; any cin and
+// cout >= 1, any alignment) -> y (n, h/2, w/2, cout) fp32, stats (2, cout)
+// f32 = (mean, biased var); part: scratch of 2 * cout * tiles_m floats,
+// tiles_m from tg_conv_stats_f32_tiles.
+extern "C" int tg_conv_stats_f32(const float* x, const float* wt, float* y,
+                                 float* part, float* stats, int n, int h,
+                                 int w, int cin, int cout, int ldb,
+                                 int tiles_m, void* stream) {
+  const tg::f32::Gemm G = tg::f32::conv_gemm(x, wt, n, h, w, cin, cout, ldb);
+  if (h < 2 || w < 2 || h % 2 || w % 2 || !tg::f32::valid(G) ||
+      tiles_m != tg::f32::tiles_m(G.rows, cout))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t e = tg::f32::dispatch(
+      G, [&](auto tile, auto va, auto vb) -> cudaError_t {
+        using T = decltype(tile);
+        constexpr bool VA = decltype(va)::value, VB = decltype(vb)::value;
+        const int grid = tiles_m * ((cout + T::BN - 1) / T::BN);
+        conv_stats_f32_kernel<T, VA, VB>
+            <<<grid, tg::f32::kThreads, T::kBytes, s>>>(G, y, part);
+        return cudaGetLastError();
+      });
   if (e != cudaSuccess) return static_cast<int>(e);
   stats_reduce_kernel<<<cout, kReduceThreads, 0, s>>>(
       part, tiles_m, cout, static_cast<double>(n) * (h / 2) * (w / 2), stats);

@@ -34,11 +34,17 @@
 //     consecutive bytes.  The blocks are persistent (as many as fit on the
 //     card, each walking tiles), so the weight is staged once a block and
 //     the ring loads the next tile's windows during an epilogue.
+//
+// fp32 operands (train.precision="fp32"): tg_convt_affine_act_f32 runs the
+// same four phase GEMMs on the FFMA mainloop of igemm_f32.cuh (one launch,
+// a grid row per phase; any Cin and Cout, operands as they are) with the
+// same affine + activation epilogue.
 #include <cuda_runtime.h>
 
 #include <algorithm>
 
 #include "convt_sm90.cuh"
+#include "igemm_f32.cuh"
 
 namespace {
 
@@ -240,4 +246,21 @@ extern "C" int tg_convt_affine_act(const void* x, const void* wt,
                               leak, s)
                  : run<tg::sm90::bf16>(x, wt, a, b, y, n, h, w, cin, cout,
                                        ldb, act, leak, s);
+}
+
+// x (n, h, w, cin) fp32, wt (4, 4, cin, ldb) fp32 (ldb >= cout; any cin and
+// cout >= 1, any alignment), a/b (cout,) f32 -> y (n, 2h, 2w, cout) bf16
+// (out_f32 = 0) or f32 (out_f32 = 1): fp32 products, fp32 sums.
+extern "C" int tg_convt_affine_act_f32(const float* x, const float* wt,
+                                       const float* a, const float* b,
+                                       void* y, int n, int h, int w, int cin,
+                                       int cout, int ldb, int act, float leak,
+                                       int out_f32, void* stream) {
+  const tg::f32::Gemm G = tg::f32::convt_gemm(x, wt, n, h, w, cin, cout, ldb);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(
+      out_f32 ? tg::f32::run_affine_act(G, 4, a, b, act, leak,
+                                        static_cast<float*>(y), s)
+              : tg::f32::run_affine_act(G, 4, a, b, act, leak,
+                                        static_cast<tg::sm90::bf16*>(y), s));
 }

@@ -43,6 +43,7 @@ from tpugan_torch.utils.device import resolve_device
 _PROXY_SEED = 20260816
 _PROXY_DIM = 256
 _PROXY_CLASSES = 16  # trained-head classes (synthetic color-phase classes)
+_TINY = torch.finfo(torch.float32).tiny  # the least normal float32
 
 Extractor = Callable[..., Tuple[np.ndarray, np.ndarray]]
 
@@ -89,7 +90,11 @@ def _train_proxy_head(convs, channels: int, n: int = 2048,
     v = torch.zeros_like(w)
     for _ in range(steps):
         # the gradient of -mean(log_softmax(fz @ w)[y])
-        g = fz.T @ (torch.softmax(fz @ w, dim=-1) - onehot) / n
+        # the softmax's far tails are subnormal floats, below the ulp of
+        # any sum here, which the CPU multiplies ~30x slower: zeroed
+        prob = torch.softmax(fz @ w, dim=-1)
+        prob = torch.where(prob < _TINY, 0.0, prob)
+        g = fz.T @ (prob - onehot) / n
         v = 0.9 * v - 0.5 * g
         w = w + v
     return w / sd[:, None], -(mu / sd) @ w

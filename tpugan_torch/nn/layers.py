@@ -185,7 +185,12 @@ class BatchNorm(nn.Module):
         else:
             mean, var = self.mean, self.var
         inv = torch.rsqrt(var + self.eps) * scale
-        return ((xf - mean) * inv + bias).to(self.dtype)
+        if torch.is_grad_enabled():
+            return ((xf - mean) * inv + bias).to(self.dtype)
+        # no graph to keep (sampling, FID): the same three ops in place,
+        # the same bits, without a map-sized temporary for each
+        y = xf.clone() if xf is x else xf
+        return y.sub_(mean).mul_(inv).add_(bias).to(self.dtype)
 
 
 class Embedding(nn.Module):

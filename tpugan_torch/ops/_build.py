@@ -5,7 +5,8 @@ shared library with a plain C interface, loaded with ``ctypes``.  A library
 is built once, at first use, into ``tpugan_torch/_build/`` (listed in
 ``.gitignore``), under a name that hashes its sources and flags, so an edit
 rebuilds it.  ``build_all`` starts one ``nvcc`` per source at once.  Every
-kernel runs on the Hopper mainloop of ``csrc/igemm_sm90.cuh``; it needs no
+kernel runs on the Hopper mainloop of ``csrc/igemm_sm90.cuh``, and the fp32
+entry points of the conv kernels on ``csrc/igemm_f32.cuh``; they need no
 library beyond the CUDA runtime (the TMA tensor maps are encoded through
 the runtime's driver entry point).
 

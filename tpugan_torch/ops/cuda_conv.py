@@ -21,10 +21,16 @@ The kernel has two paths, chosen by shape in the library's launch plan
   discriminator's other layers (Cin 64 to 256, Cout a multiple of 64,
   tensors from PyTorch's allocator) take no copy.
 
+fp32 operands (``train.precision="fp32"``, as the Pallas kernel takes them)
+run ``tg_conv_affine_act_f32``: the same function with fp32 products on the
+FFMA mainloop of ``csrc/igemm_f32.cuh``, which takes x and w as they are
+(any Cin and Cout, no padding, no plan).
+
 ``conv_affine_act`` takes a CPU tensor to the plain version below and a CUDA
 tensor to the kernel; it raises on a shape or dtype the kernel does not
-take, and when autograd would need a gradient through it (the kernel is
-forward-only, as the Pallas kernel has no VJP).
+take (``kernel_common.check_operands``: x and w of one dtype, bf16 or fp32,
+on every device), and when autograd would need a gradient through it (the
+kernel is forward-only, as the Pallas kernel has no VJP).
 """
 
 from __future__ import annotations
@@ -36,7 +42,8 @@ import torch
 import torch.nn.functional as F
 
 from tpugan_torch.ops import _build
-from tpugan_torch.ops.kernel_common import (ACT_CODES, aligned, pad_dim,
+from tpugan_torch.ops.kernel_common import (ACT_CODES, aligned,
+                                            check_operands, pad_dim,
                                             round_up)
 from tpugan_torch.ops.kernel_common import act as _act
 
@@ -62,19 +69,6 @@ def check_forward_only(what: str, *tensors) -> None:
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         raise RuntimeError(f"{what} is forward-only: it has no backward "
                            f"(run it under torch.no_grad())")
-
-
-def check_bf16_operands(x, w, out_dtype, *others) -> None:
-    """The CUDA kernels' operand contract: bf16 x and w on one device."""
-    if x.dtype != torch.bfloat16 or w.dtype != torch.bfloat16:
-        raise ValueError(f"the CUDA kernel takes bf16 x and w, got "
-                         f"{x.dtype} and {w.dtype}")
-    if out_dtype not in (torch.bfloat16, torch.float32):
-        raise ValueError(f"out_dtype must be bf16 or f32, got {out_dtype}")
-    for t in (w, *others):
-        if t.device != x.device:
-            raise ValueError(f"all operands must be on {x.device}, got "
-                             f"{t.device}")
 
 
 def conv421_plain(x, w):
@@ -123,12 +117,12 @@ def kernel_operands(x, w, path: str):
 
 def _lib():
     lib = _build.load("cuda_conv")
-    fn = lib.tg_conv_affine_act
-    if fn.argtypes is None:
+    if lib.tg_conv_affine_act.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, ctypes.c_float, i,
-                       p]
-        fn.restype = ctypes.c_int
+        for fn in (lib.tg_conv_affine_act, lib.tg_conv_affine_act_f32):
+            fn.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i,
+                           ctypes.c_float, i, p]
+            fn.restype = ctypes.c_int
         lib.tg_conv_affine_act_plan.argtypes = [i, i, i, i, i, i,
                                                 ctypes.POINTER(i)]
         lib.tg_conv_affine_act_plan.restype = None
@@ -154,17 +148,22 @@ def plan(x, cout: int) -> tuple[str, int, int]:
 
 def _launch(x, w, scale, shift, act, leak, out_dtype):
     global launches
-    check_bf16_operands(x, w, out_dtype, scale, shift)
     cout = w.shape[-1]
-    x, w, ldb = kernel_operands(x.contiguous(), w.contiguous(),
-                                plan(x, cout)[0])
+    if x.dtype == torch.float32:
+        # the FFMA mainloop takes the operands as they are
+        fn, ldb = _lib().tg_conv_affine_act_f32, cout
+        x, w = x.contiguous(), w.contiguous()
+    else:
+        fn = _lib().tg_conv_affine_act
+        x, w, ldb = kernel_operands(x.contiguous(), w.contiguous(),
+                                    plan(x, cout)[0])
     a = scale.to(torch.float32).contiguous()
     b = shift.to(torch.float32).contiguous()
     n, h, wd, cin = x.shape
     y = torch.empty((n, h // 2, wd // 2, cout), dtype=out_dtype,
                     device=x.device)
     with torch.cuda.device(x.device):
-        rc = _lib().tg_conv_affine_act(
+        rc = fn(
             x.data_ptr(), w.data_ptr(), a.data_ptr(), b.data_ptr(),
             y.data_ptr(), n, h, wd, cin, cout, ldb, ACT_CODES[act],
             float(leak), int(out_dtype == torch.float32),
@@ -181,7 +180,8 @@ def conv_affine_act(x, w, scale, shift, *, act: str = "leaky_relu",
     x: (N, H, W, Cin), H and W even; w: (4, 4, Cin, Cout) HWIO;
     scale/shift: (Cout,) fp32 per-channel affine (from ``bn_affine``, or
     (1, bias) for a plain bias).  Returns (N, H/2, W/2, Cout) in
-    ``out_dtype`` (default: x's dtype).  On CUDA, x and w must be bf16.
+    ``out_dtype`` (default: x's dtype).  x and w are bf16, or fp32 (fp32
+    products on the card), of one dtype.
     """
     check_conv421(x, w)
     cout = w.shape[3]
@@ -192,6 +192,7 @@ def conv_affine_act(x, w, scale, shift, *, act: str = "leaky_relu",
         raise ValueError(f"unknown act {act!r}")
     check_forward_only("conv_affine_act", x, w, scale, shift)
     out_dtype = out_dtype or x.dtype
+    check_operands(x, w, out_dtype, scale, shift)
     if x.device.type == "cpu":
         return conv_affine_act_plain(x, w, scale, shift, act=act, leak=leak,
                                      out_dtype=out_dtype)

@@ -22,6 +22,11 @@ to a multiple of 64 (x and w), Cout with zero columns of w to a multiple of
 8, and an operand off 16-byte alignment is copied.  The discriminator's BN
 layers (Cin 64 to 256, Cout a multiple of 64, tensors from PyTorch's
 allocator) take no copy.
+
+fp32 operands (``train.precision="fp32"``, as the Pallas kernel takes them)
+run ``tg_conv_stats_f32``: the same function with fp32 products on the FFMA
+mainloop of ``csrc/igemm_f32.cuh``, x and w as they are, y in fp32; the
+backward is the same PyTorch VJP, in fp32.
 """
 
 from __future__ import annotations
@@ -32,9 +37,10 @@ import functools
 import torch
 
 from tpugan_torch.ops import _build
-from tpugan_torch.ops.cuda_conv import (check_bf16_operands, check_conv421,
-                                        check_forward_only, conv421_plain)
+from tpugan_torch.ops.cuda_conv import (check_conv421, check_forward_only,
+                                        conv421_plain)
 from tpugan_torch.ops.cuda_conv import wide_operands as kernel_operands
+from tpugan_torch.ops.kernel_common import check_operands
 
 # Kernel launches made by ``conv_stats`` (CUDA tensors only).
 launches = 0
@@ -73,6 +79,11 @@ def _lib():
         p, i = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, i, p]
         fn.restype = ctypes.c_int
+        lib.tg_conv_stats_f32.argtypes = [p, p, p, p, p, i, i, i, i, i, i,
+                                          i, p]
+        lib.tg_conv_stats_f32.restype = ctypes.c_int
+        lib.tg_conv_stats_f32_tiles.argtypes = [i, i, i, i]
+        lib.tg_conv_stats_f32_tiles.restype = ctypes.c_int
         lib.tg_conv_stats_plan.argtypes = [i, i, i, i, i, i,
                                            ctypes.POINTER(i)]
         lib.tg_conv_stats_plan.restype = None
@@ -100,22 +111,34 @@ def _launch(x, w, splits=None):
     overrides ``plan``'s depth split with another of 1, 2 or 4 dividing the
     16 Cin / 64 stages."""
     global launches
-    check_bf16_operands(x, w, x.dtype)
     cout = w.shape[-1]
-    x, w, ldb = kernel_operands(x.contiguous(), w.contiguous())
-    n, h, wd, cin = x.shape
-    tiles_m, planned = plan(x, cout)
+    lib = _lib()
+    if x.dtype == torch.float32:
+        # the FFMA mainloop takes the operands as they are
+        x, w = x.contiguous(), w.contiguous()
+        n, h, wd, cin = x.shape
+        tiles_m = lib.tg_conv_stats_f32_tiles(n, h, wd, cout)
+    else:
+        x, w, ldb = kernel_operands(x.contiguous(), w.contiguous())
+        n, h, wd, cin = x.shape
+        tiles_m, planned = plan(x, cout)
     y = torch.empty((n, h // 2, wd // 2, cout), dtype=x.dtype,
                     device=x.device)
     # one buffer: the (mean, var) result, then the per-tile partials
     buf = torch.empty(2 * cout * (1 + tiles_m), dtype=torch.float32,
                       device=x.device)
     stats = buf.data_ptr()
+    stream = _build.stream_ptr(x.device.index)
     with torch.cuda.device(x.device):
-        rc = _lib().tg_conv_stats(
-            x.data_ptr(), w.data_ptr(), y.data_ptr(), stats + 8 * cout,
-            stats, n, h, wd, cin, cout, ldb, splits or planned, tiles_m,
-            _build.stream_ptr(x.device.index))
+        if x.dtype == torch.float32:
+            rc = lib.tg_conv_stats_f32(
+                x.data_ptr(), w.data_ptr(), y.data_ptr(), stats + 8 * cout,
+                stats, n, h, wd, cin, cout, cout, tiles_m, stream)
+        else:
+            rc = lib.tg_conv_stats(
+                x.data_ptr(), w.data_ptr(), y.data_ptr(), stats + 8 * cout,
+                stats, n, h, wd, cin, cout, ldb, splits or planned, tiles_m,
+                stream)
     _build.check(rc, "conv_stats")
     launches += 1
     return y, buf[:cout], buf[cout:2 * cout]
@@ -125,11 +148,12 @@ def conv_stats(x, w):
     """y = Conv(4, 2, 1)(x, w) with its per-channel batch mean and biased
     variance over (N, H/2, W/2), clamped at >= 0.
 
-    Returns (y in x's dtype, mean f32, var f32).  Forward-only; on CUDA, x
-    and w must be bf16.
+    Returns (y in x's dtype, mean f32, var f32).  Forward-only; x and w are
+    bf16, or fp32 (fp32 products on the card), of one dtype.
     """
     check_conv421(x, w)
     check_forward_only("conv_stats", x, w)
+    check_operands(x, w, x.dtype)
     if x.device.type == "cpu":
         return conv_stats_plain(x, w)
     if x.device.type != "cuda":

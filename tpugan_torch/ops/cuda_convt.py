@@ -25,7 +25,14 @@ VJP): inside the op autograd is already off, so the test lives in front of
 it.  Importing this module registers the op, which loading an exported
 program needs.
 
-The kernel reads x, and w where Cout > 8, by TMA, which needs rows of a
+fp32 operands (``train.precision="fp32"``, as the Pallas kernel takes them)
+run ``tg_convt_affine_act_f32``: the same four phase GEMMs with fp32
+products on the FFMA mainloop of ``csrc/igemm_f32.cuh``, in one launch,
+which takes x and w as they are (any Cin and Cout, no padding).  The op's
+dtype rule (``kernel_common.check_operands``: x and w of one dtype, bf16 or
+fp32) holds on every device.
+
+The bf16 kernel reads x, and w where Cout > 8, by TMA, which needs rows of a
 multiple of 16 bytes and 16-byte-aligned bases.  ``kernel_operands`` states
 the rule: Cin is padded with zero channels to a multiple of 8 (x and w),
 Cout with zero columns of w to a multiple of 8 where TMA reads w, and an
@@ -43,7 +50,8 @@ import torch.nn.functional as F
 
 from tpugan_torch.ops import _build
 from tpugan_torch.ops.kernel_common import (ACT_CODES, TAPS, aligned,
-                                            pad_dim, round_up)
+                                            check_operands, pad_dim,
+                                            round_up)
 from tpugan_torch.ops.kernel_common import act as _act
 
 # Kernel launches made by the op ``convt_affine_act`` (CUDA tensors only),
@@ -57,7 +65,7 @@ NARROW_COUT = 8
 NARROW_MAX_CIN = 512
 
 
-def _check(x, w, scale, shift, act):
+def _check(x, w, scale, shift, act, out_dtype):
     if x.dim() != 4:
         raise ValueError(f"x must be (N, H, W, Cin), got {tuple(x.shape)}")
     if w.dim() != 4 or w.shape[0] != 4 or w.shape[1] != 4:
@@ -72,6 +80,7 @@ def _check(x, w, scale, shift, act):
             raise ValueError(f"{name} must be ({cout},), got {tuple(t.shape)}")
     if act not in ACT_CODES:
         raise ValueError(f"unknown act {act!r}")
+    check_operands(x, w, out_dtype, scale, shift)
 
 
 def convt_affine_act_plain(x, w, scale, shift, *, act: str = "relu",
@@ -102,12 +111,12 @@ def convt_affine_act_plain(x, w, scale, shift, *, act: str = "relu",
 
 def _lib():
     lib = _build.load("cuda_convt")
-    fn = lib.tg_convt_affine_act
-    if fn.argtypes is None:
+    if lib.tg_convt_affine_act.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, ctypes.c_float,
-                       i, p]
-        fn.restype = ctypes.c_int
+        for fn in (lib.tg_convt_affine_act, lib.tg_convt_affine_act_f32):
+            fn.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i,
+                           ctypes.c_float, i, p]
+            fn.restype = ctypes.c_int
     return lib
 
 
@@ -127,23 +136,21 @@ def kernel_operands(x, w):
 
 def _launch(x, w, scale, shift, act, leak, out_dtype):
     global launches
-    if x.dtype != torch.bfloat16 or w.dtype != torch.bfloat16:
-        raise ValueError(f"the CUDA kernel takes bf16 x and w, got "
-                         f"{x.dtype} and {w.dtype}")
-    if out_dtype not in (torch.bfloat16, torch.float32):
-        raise ValueError(f"out_dtype must be bf16 or f32, got {out_dtype}")
     dev = x.device
-    for t in (w, scale, shift):
-        if t.device != dev:
-            raise ValueError(f"all operands must be on {dev}, got {t.device}")
     cout = w.shape[-1]
-    x, w, ldb = kernel_operands(x.contiguous(), w.contiguous())
+    if x.dtype == torch.float32:
+        # the FFMA mainloop takes the operands as they are
+        fn, ldb = _lib().tg_convt_affine_act_f32, cout
+        x, w = x.contiguous(), w.contiguous()
+    else:
+        fn = _lib().tg_convt_affine_act
+        x, w, ldb = kernel_operands(x.contiguous(), w.contiguous())
     a = scale.to(torch.float32).contiguous()
     b = shift.to(torch.float32).contiguous()
     n, h, wd, cin = x.shape
     y = torch.empty((n, 2 * h, 2 * wd, cout), dtype=out_dtype, device=dev)
     with torch.cuda.device(dev):
-        rc = _lib().tg_convt_affine_act(
+        rc = fn(
             x.data_ptr(), w.data_ptr(), a.data_ptr(), b.data_ptr(),
             y.data_ptr(), n, h, wd, cin, cout, ldb, ACT_CODES[act],
             float(leak), int(out_dtype == torch.float32),
@@ -157,7 +164,7 @@ def _launch(x, w, scale, shift, act, leak, out_dtype):
 def _op(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
         shift: torch.Tensor, act: str, leak: float,
         out_dtype: torch.dtype) -> torch.Tensor:
-    _check(x, w, scale, shift, act)
+    _check(x, w, scale, shift, act, out_dtype)
     if x.device.type == "cpu":
         return convt_affine_act_plain(x, w, scale, shift, act=act, leak=leak,
                                       out_dtype=out_dtype)
@@ -179,7 +186,8 @@ def convt_affine_act(x, w, scale, shift, *, act: str = "relu",
     x: (N, H, W, Cin); w: (4, 4, Cin, Cout) HWIO deconv weights (unflipped);
     scale/shift: (Cout,) fp32 per-channel affine (from ``bn_affine``, or
     (1, bias) for a plain bias).  Returns (N, 2H, 2W, Cout) in ``out_dtype``
-    (default: x's dtype).  On CUDA, x and w must be bf16.
+    (default: x's dtype).  x and w are bf16, or fp32 (fp32 products on
+    the card), of one dtype.
     """
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (x, w, scale, shift)):

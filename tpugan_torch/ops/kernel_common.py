@@ -17,6 +17,25 @@ TAPS = {0: [(1, 0), (3, -1)], 1: [(0, 1), (2, 0)]}
 # activation name -> the integer code the CUDA kernels take
 ACT_CODES = {"none": 0, "relu": 1, "leaky_relu": 2, "tanh": 3}
 
+# the operand dtypes of the conv kernels (1, 4, 5), as the TPU kernels take
+# them: products in the operands' dtype, sums in fp32
+OPERAND_DTYPES = (torch.bfloat16, torch.float32)
+
+
+def check_operands(x, w, out_dtype, *others) -> None:
+    """The conv kernels' operand contract, on every device (the plain
+    versions keep it too): x and w of one dtype, bf16 or fp32; out bf16 or
+    fp32; every operand on x's device.  Raises ``ValueError``."""
+    if x.dtype not in OPERAND_DTYPES or w.dtype != x.dtype:
+        raise ValueError(f"the conv kernels take x and w of one dtype, bf16 "
+                         f"or fp32, got {x.dtype} and {w.dtype}")
+    if out_dtype not in OPERAND_DTYPES:
+        raise ValueError(f"out_dtype must be bf16 or f32, got {out_dtype}")
+    for t in (w, *others):
+        if t.device != x.device:
+            raise ValueError(f"all operands must be on {x.device}, got "
+                             f"{t.device}")
+
 
 def round_up(v: int, m: int) -> int:
     return -(-v // m) * m
@@ -41,7 +60,11 @@ def leaky_relu(y: torch.Tensor, leak: float = 0.2) -> torch.Tensor:
     """JAX's ``leaky_relu``: ``where(y >= 0, y, leak * y)``.  The values
     are ``F.leaky_relu``'s; the derivative at exactly 0 is JAX's 1, where
     PyTorch's is ``leak`` (an augmentation's zeroed or zero-padded pixels
-    make exact zeros in a layer with a zero bias)."""
+    make exact zeros in a layer with a zero bias).  Where no gradient is
+    taken it is ``F.leaky_relu``, one op for three, the same bits (-0.0 and
+    NaN included)."""
+    if not (y.requires_grad and torch.is_grad_enabled()):
+        return F.leaky_relu(y, leak)
     return torch.where(y >= 0, y, y * leak)
 
 
