@@ -236,9 +236,11 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 
 # H100 SXM dense peaks (NVIDIA data sheet), at the full 700 W power limit:
-# bf16 on the tensor cores, fp32 FMA on the CUDA cores (the fp32 kernels'
-# products: TF32 would round the operands), and memory
+# bf16 and TF32 on the tensor cores (the fp32 route of kernels 1 and 5 runs
+# its products as three TF32 passes over split operands), fp32 FMA on the
+# CUDA cores (the FFMA mainloop's products), and memory
 PEAK_BF16_FLOPS = 989e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 
@@ -684,7 +686,9 @@ def profile_run(run, n: int, label: str, top: int = 12) -> dict:
         log(f"[profile]   {e.self_device_time_total / 1e3 / n:8.4f} ms/step "
             f"{e.count / n:6.1f}/step  {e.key[:90]}")
     return dict(ms=prof_ms, busy_ms=busy, busy_share=busy / prof_ms,
-                kernels=per_step)
+                kernels=per_step,
+                by_kernel={e.key: e.self_device_time_total / 1e3 / n
+                           for e in kern})
 
 
 def profile_steps(tr, n: int, data: dict, metrics: list, label: str,
@@ -1006,18 +1010,30 @@ def cli_phase(dev, zero_counts, read_counts) -> dict:
     return found
 
 
-def f32_case(kernel: str, shape: str, run, plain, plain_tf32, library,
-             check, flops, byt, **extra) -> dict:
-    """One layer of an fp32 kernel: ``run()`` (the kernel) against
-    ``plain()`` (its plain version) by ``check(got, ref)`` -> (max err,
-    scale, ok).  Beside it, by the same check, two TF32 runs of the same
-    function: ``library()`` (one PyTorch call, its result in the kernel's
-    layout) with cuDNN's TF32 on, where cuDNN may pick a kernel that does
-    not round (it does not for the RGB layers), and ``plain_tf32()`` (the
-    plain version on ``tf32_round``-ed x and w), which rounds on every
-    layer.  Times: the kernel's and the library call's with TF32 off
-    (``timed``), the plain version's, and the bound at the fp32 rate
-    (``PEAK_FP32_FLOPS``)."""
+def f32_bound(route: str, flops: float, nbytes: float) -> tuple[float, str]:
+    """The least time of an fp32 kernel's work on its route: three TF32
+    passes at ``PEAK_TF32_FLOPS`` ("tf32") or FFMA at ``PEAK_FP32_FLOPS``
+    ("ffma"), or its bytes."""
+    if route == "tf32":
+        return bound_ms(3 * flops, nbytes, PEAK_TF32_FLOPS)
+    return bound_ms(flops, nbytes, PEAK_FP32_FLOPS)
+
+
+def f32_case(kernel: str, shape: str, route: str, run, plain, plain_tf32,
+             library, check, flops, byt, **extra) -> dict:
+    """One layer of an fp32 kernel on ``route`` ("tf32" or "ffma", the one
+    the wrapper takes: ``kernel_common.f32_route``): ``run()`` (the kernel)
+    against ``plain()`` (its plain version) by ``check(got, ref)`` -> (max
+    err, scale, ok).  Beside it, by the same check, two TF32 runs of the
+    same function: ``library()`` (one PyTorch call, its result in the
+    kernel's layout) with cuDNN's TF32 on, where cuDNN may pick a kernel
+    that does not round (it does not for the RGB layers), and
+    ``plain_tf32()`` (the plain version on ``tf32_round``-ed x and w),
+    which rounds on every layer and must err beyond the limit, so that the
+    limit tells one TF32 pass from the route's three.  Times: the kernel's
+    and the library call's with TF32 off (``timed``), the plain version's,
+    and the bound on the route (``f32_bound``), with the FFMA rate's
+    beside it (``bound_ffma_ms``, the FFMA mainloop's bound)."""
     import torch
 
     got, ref = run(), plain()
@@ -1030,9 +1046,14 @@ def f32_case(kernel: str, shape: str, run, plain, plain_tf32, library,
     t32_ops_err = check(t32_ops, ref)[0]
     require(ok, f"{kernel} fp32 {shape}: max err {err} (largest |ref| "
             f"{scale}; the limit is 1e-5 of it)")
-    bms, by = bound_ms(flops, byt, PEAK_FP32_FLOPS)
-    c = dict(**extra, shape=shape, dtype="float32", **timed(run, library),
-             plain_ms=time_ms(plain, 5), bound_ms=bms, bound_by=by,
+    require(t32_ops_err > 1e-5 * scale,
+            f"{kernel} fp32 {shape}: one TF32 pass errs {t32_ops_err}, "
+            f"within the limit: it cannot tell TF32 from fp32")
+    bms, by = f32_bound(route, flops, byt)
+    c = dict(**extra, shape=shape, dtype="float32", route=route,
+             **timed(run, library), plain_ms=time_ms(plain, 5),
+             bound_ms=bms, bound_by=by,
+             bound_ffma_ms=f32_bound("ffma", flops, byt)[0],
              flops=flops, bytes=byt, max_abs_err=err, scale=scale,
              tf32_max_abs_err=t32_err, tf32_operands_max_abs_err=t32_ops_err)
     log(f"[fp32] {kernel} {json.dumps(c)}")
@@ -1048,10 +1069,11 @@ def f32_summary(cases: list, main: int) -> dict:
     first ``main`` layer cases (the main path's layers, one forward), the
     largest errors over all of them, and every case."""
     keys = ("ms", "device_ms", "plain_ms", "library_ms", "library_device_ms",
-            "bound_ms", "flops", "bytes")
+            "bound_ms", "bound_ffma_ms", "flops", "bytes")
     out = {k: sum(c[k] for c in cases[:main]) for k in keys}
-    out["bound_by"] = bound_ms(out["flops"], out["bytes"],
-                               PEAK_FP32_FLOPS)[1]
+    routes = sorted({c["route"] for c in cases[:main]})
+    out["route"] = "+".join(routes)
+    out["bound_by"] = f32_bound(routes[-1], out["flops"], out["bytes"])[1]
     out["max_abs_err"] = max(c["max_abs_err"] for c in cases)
     out["max_rel_err"] = max(c["max_abs_err"] / c["scale"] for c in cases)
     for key in ("tf32", "tf32_operands"):  # the least over the layers
@@ -1062,13 +1084,15 @@ def f32_summary(cases: list, main: int) -> dict:
 
 def fp32_kernels(dev, real) -> dict:
     """Phase 21 (a): kernels 1, 4 and 5 on fp32 operands at the fp32 path's
-    shapes, each against its plain version (``f32_check``), with the error
-    of a TF32 run of its library call beside: kernel 1 at the four layers
-    of the fp32 ``dcgan_celeba64`` generator at batch 256, on its own
-    activations; kernel 4 at the four layers of its discriminator at batch
-    128 (``real``, fp32 images) and the conditional D's first layer (Cin
-    4); kernel 5 at the three BN layers at batches 128 and 64.  Returns
-    each kernel's ``f32_summary``."""
+    shapes, each on the route its wrapper takes (kernels 1 and 5 three TF32
+    passes, kernel 4 FFMA) against its plain version (``f32_check``), with
+    the error of a TF32 run of its library call beside: kernel 1 at the
+    four layers of the fp32 ``dcgan_celeba64`` generator at batch 256, on
+    its own activations; kernel 4 at the four layers of its discriminator
+    at batch 128 (``real``, fp32 images) and the conditional D's first
+    layer (Cin 4); kernel 5 at the three BN layers at batches 128 and 64.
+    Kernels 1 and 5 give the same bits on a second run.  Returns each
+    kernel's ``f32_summary``."""
     import torch
     import torch.nn.functional as F
 
@@ -1077,10 +1101,20 @@ def fp32_kernels(dev, real) -> dict:
     from tpugan_torch.ops import cuda_conv, cuda_conv_stats, cuda_convt
     from tpugan_torch.ops import cuda_gen
     from tpugan_torch.ops.fused import bn_affine
+    from tpugan_torch.ops.kernel_common import f32_route
     from tpugan_torch.sample.sampler import seeded_noise
 
     f32 = torch.float32
     out = {}
+
+    def twice(name, run):
+        """``run``, after two runs of it gave the same bits (no atomics, a
+        fixed order)."""
+        runs = [run() for _ in range(2)]
+        runs = [(r,) if torch.is_tensor(r) else r for r in runs]
+        require(all(torch.equal(u, v) for u, v in zip(*runs)),
+                f"{name}: two runs differ")
+        return run
     cfg, g = make_generator("dcgan_celeba64", dev,
                             {"train.precision": "fp32"})
     require(cfg.model.nz == 100 and cfg.model.ngf == 64
@@ -1104,11 +1138,12 @@ def fp32_kernels(dev, real) -> dict:
 
             n, h, wd, cin = x.shape
             cout = w.shape[3]
+            shape = f"{n}x{h}x{wd}x{cin}->{2 * h}x{2 * wd}x{cout}"
             cases.append(f32_case(
-                "convt_affine_act",
-                f"{n}x{h}x{wd}x{cin}->{2 * h}x{2 * wd}x{cout}",
-                lambda x=x, w=w, a=a, b=b, act=act:
-                    cuda_convt.convt_affine_act(x, w, a, b, act=act),
+                "convt_affine_act", shape, f32_route(cin),
+                twice(f"convt_affine_act fp32 {shape}",
+                      lambda x=x, w=w, a=a, b=b, act=act:
+                      cuda_convt.convt_affine_act(x, w, a, b, act=act)),
                 lambda x=x, w=w, a=a, b=b, act=act:
                     cuda_convt.convt_affine_act_plain(x, w, a, b, act=act),
                 lambda x=x, w=w, a=a, b=b, act=act:
@@ -1148,7 +1183,7 @@ def fp32_kernels(dev, real) -> dict:
         flops, byt = conv_work(x, w, n * (h // 2) * (wd // 2) * cout * 4)
         return f32_case(
             "conv_affine_act", f"{n}x{h}x{wd}x{cin}->{h // 2}x{wd // 2}x"
-            f"{cout}",
+            f"{cout}", "ffma",
             lambda: cuda_conv.conv_affine_act(x, w, a, b, leak=leak),
             lambda: cuda_conv.conv_affine_act_plain(x, w, a, b, leak=leak),
             lambda: cuda_conv.conv_affine_act_plain(
@@ -1169,9 +1204,11 @@ def fp32_kernels(dev, real) -> dict:
 
         flops, byt = conv_work(x, w, (n * (h // 2) * (wd // 2) + 2) * cout
                                * 4)
+        shape = f"{n}x{h}x{wd}x{cin}->{h // 2}x{wd // 2}x{cout}"
         return f32_case(
-            "conv_stats", f"{n}x{h}x{wd}x{cin}->{h // 2}x{wd // 2}x{cout}",
-            lambda: cuda_conv_stats.conv_stats(x, w),
+            "conv_stats", shape, f32_route(cin),
+            twice(f"conv_stats fp32 {shape}",
+                  lambda: cuda_conv_stats.conv_stats(x, w)),
             lambda: cuda_conv_stats.conv_stats_plain(x, w),
             lambda: cuda_conv_stats.conv_stats_plain(tf32_round(x),
                                                      tf32_round(w)),
@@ -1282,6 +1319,19 @@ def fp32_phase(dev, train_data, zero_counts, read_counts) -> dict:
     require(counts["conv_stats"] == 9 * steps_on,
             f"{counts['conv_stats']} kernel-5 launches in {steps_on} fp32 "
             f"steps, not 9 a step")
+    # where an fp32 step's device time goes (5 more steps, not counted):
+    # kernel 5's is its conv tiles', its weight splits' and its reduce's
+    prof = profile_steps(trs["on"], 5, train_data, metrics,
+                         "fp32 dcgan_celeba64 fuse_stats=on")
+    found["train_on_busy_share"] = prof["busy_share"]
+    found["train_on_busy_ms"] = prof["busy_ms"]
+    found["train_on_kernel5_ms"] = sum(
+        ms for key, ms in prof["by_kernel"].items()
+        if any(k in key for k in ("conv_stats", "stats_reduce",
+                                  "split_weight")))
+    log(f"[fp32] profiled step: {prof['ms']:.4f} ms/step, device busy "
+        f"{prof['busy_ms']:.4f} ms ({100 * prof['busy_share']:.1f}%), "
+        f"kernel 5 {found['train_on_kernel5_ms']:.4f} ms/step")
     for mode in ("on", "off"):
         ms = sum(times[mode]) / len(times[mode])
         found[f"train_{mode}_ms"] = ms

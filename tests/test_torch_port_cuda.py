@@ -22,6 +22,7 @@ from tpugan_torch.configs import get_preset
 from tpugan_torch.models.registry import build_generator
 from tpugan_torch.ops import (cuda_conv, cuda_conv_stats, cuda_convt,
                                cuda_gen, cuda_gen2)
+from tpugan_torch.ops.kernel_common import f32_route
 
 pytestmark = pytest.mark.cuda
 
@@ -409,7 +410,9 @@ def test_conv_kernels_take_unaligned_operands(cuda):
 
 
 # ---------------------------------------------------------------------------
-# fp32 operands (train.precision="fp32"): the FFMA kernels of igemm_f32.cuh
+# fp32 operands (train.precision="fp32"): kernels 1 and 5 by three TF32
+# passes where Cin is a multiple of 32, else (and kernel 4 always) the FFMA
+# kernels of igemm_f32.cuh
 # ---------------------------------------------------------------------------
 
 F32 = torch.float32
@@ -564,6 +567,117 @@ def test_f32_kernels_take_unaligned_operands(cuda_f32):
     ref = cuda_conv_stats.conv_stats(x, wt)
     torch.cuda.synchronize()
     assert all(torch.equal(g, r) for g, r in zip(got, ref))
+
+
+# the three-pass TF32 route of kernels 1 and 5 (Cin a multiple of 32):
+# Cout 3 and 8 (kernel 1's 8-wide tile), 40 (a ragged 64-wide tile) and 136
+# (a ragged second 128-wide tile), Cin 32, 64 and 96, batch 1; for kernel
+# 1's narrow tile (Cout <= 4, Cin <= 64) a box of 126 rows (14 x 9), boxes
+# of 5 images, and the shapes it leaves to the 8-wide tile: a halo too
+# large (a 160-wide row) and Cin 128
+TF32_CONVT_SHAPES = [(1, 4, 4, 32, 3), (2, 8, 8, 64, 8), (2, 5, 7, 32, 40),
+                     (1, 6, 6, 64, 136), (3, 4, 4, 96, 128),
+                     (3, 14, 14, 64, 1), (5, 2, 2, 64, 2), (2, 3, 160, 32, 4),
+                     (1, 6, 6, 128, 3)]
+TF32_STATS_SHAPES = [(1, 8, 8, 32, 3), (2, 8, 8, 64, 8), (2, 10, 6, 32, 40),
+                     (1, 8, 8, 64, 136), (3, 16, 16, 96, 256)]
+
+
+@pytest.mark.parametrize("act", ["relu", "tanh"])
+@pytest.mark.parametrize("out_dtype", [F32, BF])
+@pytest.mark.parametrize("n,h,w,cin,cout", TF32_CONVT_SHAPES)
+def test_convt_tf32_route_matches_plain(cuda_f32, n, h, w, cin, cout, act,
+                                        out_dtype):
+    assert f32_route(cin) == "tf32"
+    gen, x, wt = _f32_operands(cuda_f32, n, h, w, cin, cout, cin + cout)
+    a, b = _rand((cout,), gen, cuda_f32), _rand((cout,), gen, cuda_f32)
+    before = cuda_convt.launches
+    got = cuda_convt.convt_affine_act(x, wt, a, b, act=act,
+                                      out_dtype=out_dtype)
+    again = cuda_convt.convt_affine_act(x, wt, a, b, act=act,
+                                        out_dtype=out_dtype)
+    assert cuda_convt.launches == before + 2
+    ref = cuda_convt.convt_affine_act_plain(x, wt, a, b, act=act,
+                                            out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    assert got.dtype == out_dtype and got.shape == (n, 2 * h, 2 * w, cout)
+    assert torch.equal(got, again)
+    if out_dtype == F32:
+        assert_f32_kernel_close(got, ref, _pre_tanh_scale(
+            cuda_convt.convt_affine_act_plain, act, x, wt, a, b))
+    else:
+        assert_bf16_close(got, ref)
+
+
+@pytest.mark.parametrize("splits", [None, 1, 2, 4])
+@pytest.mark.parametrize("n,h,w,cin,cout", TF32_STATS_SHAPES)
+def test_conv_stats_tf32_route_matches_plain(cuda_f32, n, h, w, cin, cout,
+                                             splits):
+    """Kernel 5 on the TF32 route, at its planned depth split and at 1, 2
+    and 4 (``_launch(..., splits=)``), against its plain version; two runs
+    give the same bits."""
+    assert f32_route(cin) == "tf32"
+    _, x, wt = _f32_operands(cuda_f32, n, h, w, cin, cout, cin * cout)
+    x = x + 0.5  # an offset mean: E[y^2] - mean^2 cancels
+    before = cuda_conv_stats.launches
+    runs = [cuda_conv_stats._launch(x, wt, splits=splits) for _ in range(2)]
+    assert cuda_conv_stats.launches == before + 2
+    yr, mr, vr = cuda_conv_stats.conv_stats_plain(x, wt)
+    torch.cuda.synchronize()
+    (y, mean, var), again = runs
+    assert y.dtype == F32 and y.shape == (n, h // 2, w // 2, cout)
+    assert_f32_kernel_close(y, yr)
+    scale = yr.abs().max().item()
+    assert (mean - mr).abs().max().item() <= 1e-5 * scale
+    assert (var - vr).abs().max().item() <= 1e-5 * (vr + mr * mr).max().item()
+    assert all(torch.equal(u, v) for u, v in zip(runs[0], again))
+
+
+# (cin, route): the fp32 route each Cin takes, decided before the launch
+F32_ROUTES = [(64, "tf32"), (32, "tf32"), (96, "tf32"), (8, "ffma"),
+              (3, "ffma"), (48, "ffma")]
+
+
+def test_f32_shapes_take_their_route(cuda_f32, monkeypatch):
+    """Each fp32 shape launches its route's entry point and no other:
+    three TF32 passes where Cin is a multiple of 32, the FFMA mainloop
+    elsewhere (``kernel_common.f32_route``)."""
+    called = []
+    entries = {cuda_convt: ("tg_convt_affine_act_tf32",
+                            "tg_convt_affine_act_f32"),
+               cuda_conv_stats: ("tg_conv_stats_tf32", "tg_conv_stats_f32")}
+    for mod, names in entries.items():
+        lib = mod._lib()
+        for name in names:
+            monkeypatch.setattr(lib, name, lambda *a, fn=getattr(lib, name),
+                                name=name: called.append(name) or fn(*a))
+    for cin, route in F32_ROUTES:
+        assert f32_route(cin) == route
+        gen, x, wt = _f32_operands(cuda_f32, 2, 8, 8, cin, 16, cin)
+        one = torch.ones(16, device=cuda_f32)
+        called.clear()
+        cuda_convt.convt_affine_act(x, wt, one, 0 * one)
+        cuda_conv_stats.conv_stats(x, wt)
+        torch.cuda.synchronize()
+        suffix = "tf32" if route == "tf32" else "f32"
+        assert called == [f"tg_convt_affine_act_{suffix}",
+                          f"tg_conv_stats_{suffix}"], (cin, called)
+
+
+def test_tf32_route_launch_failure_raises(cuda_f32, monkeypatch):
+    """A launch the TF32 route refuses (here a Cin it does not take, sent
+    to it by a patched rule) raises; nothing falls back to the FFMA
+    mainloop or the plain version, and no launch is counted."""
+    for mod in (cuda_convt, cuda_conv_stats):
+        monkeypatch.setattr(mod, "f32_route", lambda cin: "tf32")
+    gen, x, wt = _f32_operands(cuda_f32, 2, 8, 8, 8, 16, 5)
+    one = torch.ones(16, device=cuda_f32)
+    before = (cuda_convt.launches, cuda_conv_stats.launches)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        cuda_convt.convt_affine_act(x, wt, one, 0 * one)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        cuda_conv_stats.conv_stats(x, wt)
+    assert (cuda_convt.launches, cuda_conv_stats.launches) == before
 
 
 def test_conv_bn_stats_f32_backward_matches_autograd_of_plain(cuda_f32):

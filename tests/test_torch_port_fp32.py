@@ -248,3 +248,104 @@ def test_wrappers_refuse_an_fp16_output(kernel):
     with pytest.raises(ValueError, match="out_dtype"):
         fn(x, w, one, 0 * one, out_dtype=F16)
 
+
+
+# ---------------------------------------------------------------------------
+# The three-pass TF32 scheme of kernels 1 and 5 at fp32 (the card's route
+# where Cin is a multiple of 32), emulated on the CPU at every layer of the
+# two paths at full depth, batch 2, against the JAX package's fp32 Pallas
+# kernels in interpret mode
+# ---------------------------------------------------------------------------
+
+def tf32_round(t):
+    """fp32 ``t`` rounded to TF32's 10 mantissa bits, to nearest with ties
+    away from zero: ``cvt.rna.tf32.f32``, as the kernels split x and w."""
+    bits = t.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def split_tf32(t):
+    """(big, small): big = tf32_round(t), small = tf32_round(t - big), the
+    kernels' split (t - big is exact in fp32)."""
+    big = tf32_round(t)
+    return big, tf32_round(t - big)
+
+
+def three_pass(product, x, w):
+    """``product`` (an fp32 bilinear function of x and w: every product of
+    two TF32 values is exact in fp32) in the kernels' three passes: small
+    x big + big x small + big x big, fp32 sums; and in one TF32 pass."""
+    (xb, xs), (wb, ws) = split_tf32(x), split_tf32(w)
+    return (product(xs, wb) + product(xb, ws) + product(xb, wb),
+            product(xb, wb))
+
+
+# (kernel, n, h, cin, cout): the D's BN layers (kernel 5) and the G's
+# ConvT layers (kernel 1) of dcgan_celeba64 at full width, batch 2
+TF32_LAYERS = [("conv_stats", 2, 32, 64, 128), ("conv_stats", 2, 16, 128, 256),
+               ("conv_stats", 2, 8, 256, 512), ("convt", 2, 4, 512, 256),
+               ("convt", 2, 8, 256, 128), ("convt", 2, 16, 128, 64),
+               ("convt", 2, 32, 64, 3)]
+
+
+@pytest.mark.parametrize("kernel,n,h,cin,cout", TF32_LAYERS)
+def test_three_tf32_passes_match_the_fp32_pallas_kernels(kernel, n, h, cin,
+                                                         cout):
+    """The card's fp32 route of kernels 1 and 5 (three TF32 passes over
+    split operands, fp32 sums) within 1e-5 of the layer's largest |ref| of
+    the JAX package's fp32 kernel: the limit ``chip_smoke.f32_check`` holds
+    the card's kernels to (fp32 products summed in another order).  One
+    TF32 pass errs beyond it, so the limit tells the two apart."""
+    from tpugan_torch.ops.cuda_conv import conv421_plain
+    from tpugan_torch.ops.kernel_common import f32_route
+
+    assert f32_route(cin) == "tf32"
+    rng = np.random.default_rng(cin + cout)
+    x = rng.standard_normal((n, h, h, cin)).astype(np.float32)
+    w = (0.05 * rng.standard_normal((4, 4, cin, cout))).astype(np.float32)
+    xt, wt = torch.from_numpy(x), torch.from_numpy(w)
+    if kernel == "conv_stats":
+        with pltpu.force_tpu_interpret_mode():
+            ry, rm, rv = (np.asarray(r) for r in pallas_conv_stats.conv_stats(
+                jnp.asarray(x), jnp.asarray(w), out_dtype=jnp.float32))
+        y, y1 = three_pass(conv421_plain, xt, wt)
+        mean, var = cuda_conv_stats._moments(y)
+        scale = np.abs(ry).max()
+        # the statistics as chip_smoke.f32_stats_check holds them
+        assert np.abs(mean.numpy() - rm).max() <= 1e-5 * scale
+        assert np.abs(var.numpy() - rv).max() <= 1e-5 * (rv + rm * rm).max()
+    else:
+        a = (1 + 0.1 * rng.standard_normal(cout)).astype(np.float32)
+        b = (0.1 * rng.standard_normal(cout)).astype(np.float32)
+        with pltpu.force_tpu_interpret_mode():
+            ry = np.asarray(pallas_convt.convt_affine_act(
+                jnp.asarray(x), jnp.asarray(w), a, b, act="none",
+                out_dtype=jnp.float32))
+        one = torch.ones(cout)
+
+        def convt(xv, wv):
+            return cuda_convt.convt_affine_act_plain(xv, wv, one, 0 * one,
+                                                     act="none")
+
+        y, y1 = (v * torch.from_numpy(a) + torch.from_numpy(b)
+                 for v in three_pass(convt, xt, wt))
+        scale = np.abs(ry).max()
+    err = np.abs(y.numpy() - ry).max()
+    err1 = np.abs(y1.numpy() - ry).max()
+    assert err <= 1e-5 * scale, (err / scale, err1 / scale)
+    assert err1 > 1e-5 * scale, (err / scale, err1 / scale)
+
+
+@pytest.mark.parametrize("cin,route", [(64, "tf32"), (128, "tf32"),
+                                       (256, "tf32"), (512, "tf32"),
+                                       (32, "tf32"), (96, "tf32"),
+                                       (3, "ffma"), (4, "ffma"), (8, "ffma"),
+                                       (16, "ffma"), (48, "ffma"),
+                                       (100, "ffma")])
+def test_f32_route_by_cin(cin, route):
+    """The fp32 route rule of kernels 1 and 5: three TF32 passes where Cin
+    is a multiple of 32 (every layer of the full-width paths), the FFMA
+    mainloop elsewhere (the D's Cin-3/4 layers, ``dcgan_mnist`` at ngf 8)."""
+    from tpugan_torch.ops.kernel_common import f32_route
+
+    assert f32_route(cin) == route

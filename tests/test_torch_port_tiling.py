@@ -46,12 +46,12 @@ def tile_box(n, h, w):
     return bn, bh, bw, -(-n // bn) * -(-h // bh) * -(-w // bw)
 
 
-def split_k(blocks, steps, sms):
+def split_k(blocks, steps, sms, most=4):
     """Blocks sharing one tile's depth of ``steps`` stages: doubled while
     the doubled launch has at most one block a SM, each keeps at least 8
-    stages, at most 4 share a tile."""
+    stages, at most ``most`` (4) share a tile."""
     splits = 1
-    while (2 * blocks * splits <= sms and splits < 4
+    while (2 * blocks * splits <= sms and splits < most
            and steps % (2 * splits) == 0 and steps // (2 * splits) >= 8):
         splits *= 2
     return splits
@@ -63,6 +63,33 @@ def plan(n, h, w, cin, cout, sms):
     tiles_m = tile_box(n, h // 2, w // 2)[3]
     tiles_n = -(-cout // (128 if cout >= 128 else 64))
     return tiles_m, split_k(tiles_m * tiles_n, 16 * cin // 64, sms)
+
+
+# the three-pass TF32 route of kernel 5 on fp32 operands: the same plan at
+# 32 channels a stage (twice the stages), at most 2 blocks a tile, 64-wide
+# tiles where 128-wide ones split in 2 would fill at most half the card;
+# the depth split and the tile width it gets
+SPLITS_TF32 = [
+    ((128, 32, 32, 64, 128), 1, 128),   # 256 tiles
+    ((128, 16, 16, 128, 256), 1, 128),  # 128 tiles
+    ((128, 8, 8, 256, 512), 2, 128),    # 64 tiles of 128 stages
+    ((64, 32, 32, 64, 128), 1, 128),    # grad_accum=2's microbatch
+    ((64, 16, 16, 128, 256), 2, 128),   # 64 tiles
+    ((64, 8, 8, 256, 512), 2, 64),      # 32 tiles 128 wide: 64 at 64
+    ((1, 4, 4, 32, 8), 2, 64),          # 16 stages: two blocks of 8
+]
+
+
+def plan_tf32(n, h, w, cin, cout, sms):
+    """(tiles_m, splits, tile width) of the TF32 route: 16 Cin / 32
+    stages, at most 2 blocks a tile, 64-wide tiles where 128-wide ones
+    split in 2 would fill at most half the card."""
+    tiles_m = tile_box(n, h // 2, w // 2)[3]
+    tn = 128 if cout >= 128 else 64
+    if tn == 128 and 4 * tiles_m * -(-cout // 128) <= sms:
+        tn = 64
+    return (tiles_m, split_k(tiles_m * -(-cout // tn), 16 * cin // 32, sms,
+                             most=2), tn)
 
 
 def _tiles(n, h, w):
@@ -111,6 +138,17 @@ def test_split_k_plan(shape, splits):
     assert got == splits
     steps = 16 * cin // 64
     assert steps % got == 0 and steps // got >= 8 or got == 1
+
+
+@pytest.mark.parametrize("shape,splits,width", SPLITS_TF32)
+def test_split_k_plan_tf32(shape, splits, width):
+    n, h, w, cin, cout = shape
+    tiles_m, got, tn = plan_tf32(n, h, w, cin, cout, H100_SMS)
+    assert tiles_m == tile_box(n, h // 2, w // 2)[3]
+    assert (got, tn) == (splits, width)
+    steps = 16 * cin // 32
+    assert steps % got == 0 and steps // got >= 8 or got == 1
+    assert tiles_m * -(-cout // tn) * got <= H100_SMS or got == 1
 
 
 def test_split_k_keeps_eight_stages_a_block():
@@ -393,6 +431,21 @@ def test_library_plan_follows_the_rule(shape):
     x = torch.empty((1, 1, 1, 1), device="cuda").expand(n, h, w, cin)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     assert cuda_conv_stats.plan(x, cout) == plan(n, h, w, cin, cout, sms)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [s for s, _, _ in SPLITS_TF32]
+                         + [(n, 2 * h, 2 * w, 32, 136) for n, h, w in GRIDS])
+def test_library_tf32_plan_follows_the_rule(shape):
+    """The plan of kernel 5's TF32 route from the library is
+    ``plan_tf32``."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    n, h, w, cin, cout = shape
+    x = torch.empty((1, 1, 1, 1), device="cuda").expand(n, h, w, cin)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    assert cuda_conv_stats.plan_tf32(x, cout) == plan_tf32(n, h, w, cin, cout,
+                                                           sms)
 
 
 @pytest.mark.cuda

@@ -29,13 +29,32 @@
 // count), reduced in rank order: still two launches, still the same bits on
 // every run.
 //
-// fp32 operands (train.precision="fp32"): tg_conv_stats_f32 runs the conv
-// on the FFMA mainloop of igemm_f32.cuh; its epilogue takes each tile's
-// per-channel partial sums of y and y^2 from the fp32 accumulators (over
-// each thread's rows, then across the tile's row threads through shared
-// memory, in a fixed order), writes y in fp32, and the same reduce kernel
-// makes the mean and variance.
+// fp32 operands (train.precision="fp32"): the same function on fp32 x and
+// w with fp32 sums (tpugan/ops/pallas_conv_stats.py:95 `_dispatch` on fp32
+// operands).  What bounds it: the products of the D's BN layers (Cin 64 to
+// 256; 25.8 GFLOP over the three at batch 128).  No tensor-core type holds
+// an fp32 operand, and on the CUDA cores (FFMA, 67 TFLOP/s) they take
+// 0.385 ms at best.  What the design does about it: tg_conv_stats_tf32
+// runs them on the tensor cores in three TF32 passes over split operands
+// (each operand big + small; big x big + big x small + small x big summed
+// in fp32 carry ~22 bits an operand, under fp32's sum-order noise), at 165
+// TFLOP/s of fp32 products, a bound of 0.156 ms at batch 128.  It is this
+// file's kernel on the same conv tile (conv_sm90.cuh with kF32: x by TMA
+// through the parity view in fp32, 32 channels a stage, its rows split in
+// registers; B from the weight split once a call into its two parts,
+// K-major, by split_weight_tf32, 8.4 MB at most), with the same epilogue
+// (partials from the fp32 accumulators, y written in fp32), the same
+// split-K over a cluster (at most 2 blocks a tile) and the same reduce:
+// still the same bits on every run.  The tensor cores' accumulation
+// truncates, so every 4 stages' sums are added into the running sums in
+// fp32 (consume_f32).  Shapes the route does not take (Cin not a multiple
+// of 32) run tg_conv_stats_f32, the FFMA mainloop of igemm_f32.cuh:
+// per-channel partial sums over each thread's rows, then across the tile's
+// row threads through shared memory in a fixed order, and the same reduce
+// kernel.
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 #include "conv_sm90.cuh"
 #include "igemm_f32.cuh"
@@ -46,12 +65,14 @@ using namespace tg::sm90;
 
 constexpr int kReduceThreads = 256;
 
-template <int BN, int STAGES>
-__global__ void __launch_bounds__(kThreads, 2)
+// kF32: fp32 x and y, the split weight's map (make_conv_tf32).
+template <int BN, int STAGES, bool kF32 = false>
+__global__ void __launch_bounds__(kThreads, kF32 ? 1 : 2)
 conv_stats_kernel(const __grid_constant__ CUtensorMap xmap,
                   const __grid_constant__ CUtensorMap wmap, Conv L,
-                  tg::sm90::bf16* y, float* part) {
-  const ConvRing<BN, STAGES> R{smem_base()};
+                  std::conditional_t<kF32, float, tg::sm90::bf16>* y,
+                  float* part) {
+  const ConvRing<BN, STAGES, kF32> R{smem_base()};
   const int tiles_n = (L.cout + BN - 1) / BN, tiles_m = L.box.tiles();
   const int tm = blockIdx.x / tiles_n, n0 = (blockIdx.x - tm * tiles_n) * BN;
   int img0, i0, j0;
@@ -60,7 +81,8 @@ conv_stats_kernel(const __grid_constant__ CUtensorMap xmap,
   __syncthreads();
 
   float acc[BN / 2];
-  if (!conv_tile<BN, STAGES>(xmap, wmap, L, R, n0, img0, i0, j0, acc)) return;
+  if (!conv_tile<BN, STAGES, kF32>(xmap, wmap, L, R, n0, img0, i0, j0, acc))
+    return;
 
   // per-channel partial sums of this tile's valid rows
   const int wg = threadIdx.x >> 7, lane = threadIdx.x & 31;
@@ -240,6 +262,49 @@ extern "C" int tg_conv_stats(const void* x, const void* wt, void* y,
                                 wmap, L, yb, part)
           : launch_conv<64, 4>(conv_stats_kernel<64, 4>, L, splits, s, xmap,
                                wmap, L, yb, part);
+  if (e == cudaSuccess) e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  stats_reduce_kernel<<<cout, kReduceThreads, 0, s>>>(
+      part, tiles_m, cout, static_cast<double>(n) * (h / 2) * (w / 2), stats);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The plan of tg_conv_stats_tf32 on an (n, h, w, cin) input with cin % 32
+// == 0 (conv_plan_f32): plan[0] = tiles_m, plan[1] = splits, plan[2] =
+// the tile's width.
+extern "C" void tg_conv_stats_tf32_plan(int n, int h, int w, int cin,
+                                        int cout, int sms, int* plan) {
+  conv_plan_f32(n, h, w, cin, cout, sms, plan);
+}
+
+// x (n, h, w, cin) fp32 with cin % 32 == 0, 16-byte aligned; wt (4, 4, cin,
+// ldb) fp32 (ldb >= cout, any alignment) -> y (n, h/2, w/2, cout) fp32,
+// stats (2, cout) f32 = (mean, biased var), by three TF32 passes; ws:
+// scratch of 32 cin * cout floats (the split weight), part: of 2 * cout
+// * tiles_m floats; tiles_m, splits and the tile width bn (64 or 128) from
+// tg_conv_stats_tf32_plan (a measurement may set splits to another of 1, 2
+// or 4 dividing the depth of 16 cin / 32 stages).
+extern "C" int tg_conv_stats_tf32(const float* x, const float* wt, float* ws,
+                                  float* y, float* part, float* stats, int n,
+                                  int h, int w, int cin, int cout, int ldb,
+                                  int splits, int tiles_m, int bn,
+                                  void* stream) {
+  Conv L;
+  CUtensorMap xmap, wmap;
+  if ((bn != 64 && bn != 128) || ldb < cout ||
+      !make_conv_tf32(x, ws, n, h, w, cin, cout, splits, bn, &L, &xmap,
+                      &wmap) ||
+      tiles_m != L.box.tiles())
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t e = launch_split_weight(wt, 16 * cin, cout, ldb, ws, s);
+  if (e == cudaSuccess)
+    e = bn == 128 ? launch_conv<128, 4, true>(conv_stats_kernel<128, 4, true>,
+                                              L, splits, s, xmap, wmap, L, y,
+                                              part)
+                  : launch_conv<64, 6, true>(conv_stats_kernel<64, 6, true>, L,
+                                             splits, s, xmap, wmap, L, y,
+                                             part);
   if (e == cudaSuccess) e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
   stats_reduce_kernel<<<cout, kReduceThreads, 0, s>>>(

@@ -1,29 +1,37 @@
-// Implicit-GEMM mainloop for fp32 operands with fp32 sums, shared by the
-// fp32 entry points of the k4/s2/p1 conv (cuda_conv.cu), the conv + BN
-// statistics (cuda_conv_stats.cu) and the ConvT (cuda_convt.cu).
+// Implicit-GEMM mainloop for fp32 operands with fp32 sums on the CUDA
+// cores (FFMA).  It serves the fp32 entry point of the k4/s2/p1 conv
+// (cuda_conv.cu, every shape) and the narrow fp32 path of the conv + BN
+// statistics (cuda_conv_stats.cu) and the ConvT (cuda_convt.cu): the
+// shapes their three-pass TF32 route on the Hopper mainloop
+// (igemm_sm90.cuh, consume_f32) does not take, Cin not a multiple of 32
+// (32 fp32 channels fill a stage's 128-byte row there).
 //
-// Replaces: the fp32 function of tpugan/ops/pallas_conv.py,
-// pallas_conv_stats.py and pallas_convt.py, whose jnp.dot takes operands
-// of the input's dtype (fp32 under train.precision="fp32") with fp32 sums.
+// Replaces: the fp32 function of tpugan/ops/pallas_conv.py, and of
+// pallas_conv_stats.py and pallas_convt.py at those shapes, whose jnp.dot
+// takes operands of the input's dtype (fp32 under train.precision="fp32")
+// with fp32 sums.
 //
-// What bounds it on an H100: no tensor-core path computes this function
-// (TF32 and 3xTF32 round the operands, bf16 more so), so the products are
-// FFMA on the CUDA cores, 67 TFLOP/s; the discriminator's and generator's
-// wide layers (hundreds of operations per byte) are bound by operations,
-// the RGB layers by their bytes.
+// What bounds it on an H100: FFMA on the CUDA cores, 67 TFLOP/s.  A
+// tensor-core path computes the same function to fp32's own accuracy (three
+// TF32 passes over operands split into big + small, as the two TF32 routes
+// do, at 165 TFLOP/s of fp32 products); this loop stays for the kernels and
+// shapes not yet moved there: kernel 4 (its wide layers bound by
+// operations) and the narrow shapes (the D's first layers at Cin 3 or 4,
+// the small test nets), which are small.
 //
-// What the design does about it (simple first; making it fast is later
-// work): a block of 256 threads computes a BM x BN tile of an implicit GEMM
-// whose rows are the positions of a grid, whose depth is taps x Cin (k =
-// t Cin + c: the HWIO weight's row order) and whose columns are output
-// channels.  Each stage of kBK = 16 depth rows is gathered from x and w by
-// cp.async into shared memory, double buffered, so the next stage's copies
-// run while this one is multiplied; the copies zero-fill outside the image
-// (the conv's padding), past the depth and past Cout, 16 bytes a copy where
-// Cin (for x) or Cout (for w) is a multiple of 4, else 4 bytes.  Each thread
-// holds a TM x TN register tile of accumulators and sums its depth in order
-// with FFMA, reading A and B from shared memory as float4 along the depth:
-// the same bits on every run, no atomics.
+// What the design does about it (simple; the wide shapes moved to the
+// tensor cores instead): a block of 256 threads computes a BM x BN tile of
+// an implicit GEMM whose rows are the positions of a grid, whose depth is
+// taps x Cin (k = t Cin + c: the HWIO weight's row order) and whose
+// columns are output channels.  Each stage of kBK = 16 depth rows is
+// gathered from x and w by cp.async into shared memory, double buffered,
+// so the next stage's copies run while this one is multiplied; the copies
+// zero-fill outside the image (the conv's padding), past the depth and
+// past Cout, 16 bytes a copy where Cin (for x) or Cout (for w) is a
+// multiple of 4, else 4 bytes.  Each thread holds a TM x TN register tile
+// of accumulators and sums its depth in order with FFMA, reading A and B
+// from shared memory as float4 along the depth: the same bits on every
+// run, no atomics.
 //
 // A launch covers `groups` GEMMs of one shape (blockIdx.y): the conv is one
 // (16 taps at stride 2), the ConvT four, one per output parity phase (4

@@ -20,6 +20,18 @@
 //     One stage of products stays in flight while the next one's data
 //     arrives; a slot is released when its products are done.
 //
+// fp32 operands take the same ring at the same A bytes a stage: a 128-byte
+// row holds 32 fp32 channels, and one wgmma .tf32 step is 8 deep (32
+// bytes, as a bf16 step of 16).  Each operand is split into big =
+// cvt.rna.tf32(v) and small = cvt.rna.tf32(v - big): B once a call, into
+// a K-major copy of the weight's two parts (split_weight_tf32; tf32 wgmma
+// reads B only K-major), A as each stage's rows are read into registers
+// (load_split_a).  Three products a step, small x big, big x small and big
+// x big (mma_stage_3xtf32), carry each operand to ~22 bits; each dropped
+// term is ~2^-22 of its product, under the sum-order noise of fp32.  Every
+// 4 stages sum into their own accumulators, added into the running sums in
+// fp32 (consume_f32): the tensor cores' own accumulation truncates.
+//
 // Callers bring the per-step copies (a functor) and the epilogue, which
 // takes the accumulators in registers.  Host helpers encode the tensor maps
 // through the runtime's driver entry point, so no -lcuda is needed.
@@ -173,6 +185,16 @@ __device__ __forceinline__ void tma_2d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+__device__ __forceinline__ void tma_3d(void* dst, const CUtensorMap* map,
+                                       uint64_t* bar, int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "r"(c2)
+      : "memory");
+}
+
 __device__ __forceinline__ void tma_4d(void* dst, const CUtensorMap* map,
                                        uint64_t* bar, int c0, int c1, int c2,
                                        int c3) {
@@ -306,6 +328,173 @@ __device__ __forceinline__ void wgmma_m64n128(float (&d)[64], uint64_t da,
       : "l"(da), "l"(db), "r"(1), "n"(kTransB));
 }
 
+// m64nNk8, tf32 x tf32 -> f32, D = A * B + (scale_d ? D : 0): A from
+// registers (the fragment of load_split_a), B K-major from shared memory
+// (tf32 takes no transpose flag).
+__device__ __forceinline__ void wgmma_tf32_m64n8(float (&d)[4],
+                                                 const uint32_t (&a)[4],
+                                                 uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3},"
+      " {%4, %5, %6, %7}, %8, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_tf32_m64n16(float (&d)[8],
+                                                  const uint32_t (&a)[4],
+                                                  uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7},"
+      " {%8, %9, %10, %11}, %12, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_tf32_m64n64(float (&d)[32],
+                                                  const uint32_t (&a)[4],
+                                                  uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31},"
+      " {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_tf32_m64n128(float (&d)[64],
+                                                   const uint32_t (&a)[4],
+                                                   uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39,"
+      " %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55,"
+      " %56, %57, %58, %59, %60, %61, %62, %63},"
+      " {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+template <int BN>
+__device__ __forceinline__ void wgmma_tf32(float (&d)[BN / 2],
+                                           const uint32_t (&a)[4],
+                                           uint64_t db, int scale_d) {
+  if constexpr (BN == 128)
+    wgmma_tf32_m64n128(d, a, db, scale_d);
+  else if constexpr (BN == 64)
+    wgmma_tf32_m64n64(d, a, db, scale_d);
+  else if constexpr (BN == 16)
+    wgmma_tf32_m64n16(d, a, db, scale_d);
+  else
+    wgmma_tf32_m64n8(d, a, db, scale_d);
+}
+
+// v rounded to TF32's 10 mantissa bits, to nearest with ties away from
+// zero (the low 13 bits 0): exact for a tensor core, which truncates an
+// fp32 word to TF32 when it reads one.
+__device__ __forceinline__ float tf32_rna(float v) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(v));
+  return __uint_as_float(r);
+}
+
+// A warpgroup's A fragments of a 32-deep fp32 stage, split: for each of the
+// 4 k8 slices, this thread's a[0] (row r0, column 8 kk + lane % 4), a[1]
+// (row r1, the same column), a[2] and a[3] (rows r0 and r1, column + 4) of
+// wgmma m64nNk8 .tf32 (r0 = 16 warp + lane / 4 of the warpgroup's rows, r1
+// = r0 + 8), read from `tile` (rows of 32 fp32 channels, 128 bytes with
+// the 128-byte swizzle: 16-byte chunk q of row r at q ^ (r % 8); the tile
+// 1024-byte aligned) as big = tf32_rna(a) and small = tf32_rna(a - big),
+// which is exact before its rounding.
+__device__ __forceinline__ void load_split_a(const unsigned char* tile,
+                                             int r0, int r1,
+                                             uint32_t (&big)[4][4],
+                                             uint32_t (&small)[4][4]) {
+  const int t = (threadIdx.x & 3) * 4;
+  const unsigned char* p0 = tile + r0 * kRowBytes + t;
+  const unsigned char* p1 = tile + r1 * kRowBytes + t;
+  const int s0 = r0 & 7, s1 = r1 & 7;
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    const float v[4] = {
+        *reinterpret_cast<const float*>(p0 + (((2 * kk) ^ s0) << 4)),
+        *reinterpret_cast<const float*>(p1 + (((2 * kk) ^ s1) << 4)),
+        *reinterpret_cast<const float*>(p0 + (((2 * kk + 1) ^ s0) << 4)),
+        *reinterpret_cast<const float*>(p1 + (((2 * kk + 1) ^ s1) << 4))};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float b = tf32_rna(v[i]);
+      big[kk][i] = __float_as_uint(b);
+      small[kk][i] = __float_as_uint(tf32_rna(v[i] - b));
+    }
+  }
+}
+
+// Pin A fragment registers around asynchronous wgmma, as fence_acc does
+// the accumulators: they stay the operands' until the products are done.
+__device__ __forceinline__ void fence_frag(uint32_t (&r)[4][4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
+}
+
+// One 32-deep stage of a 64 x BN product on split fp32 operands into part
+// (from zero unless `add`): 4 wgmma k8 slices (B's next starts 32 bytes
+// on: descriptor + 2) of three passes each, the small terms first; db and
+// dbs are B's TF32 part and rest, K-major.
+template <int BN>
+__device__ __forceinline__ void mma_stage_3xtf32(float (&part)[BN / 2],
+                                                 const uint32_t (&big)[4][4],
+                                                 const uint32_t (&small)[4][4],
+                                                 uint64_t db, uint64_t dbs,
+                                                 bool add = false) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    wgmma_tf32<BN>(part, small[kk], db + 2 * kk, add || kk > 0);
+    wgmma_tf32<BN>(part, big[kk], dbs + 2 * kk, 1);
+    wgmma_tf32<BN>(part, big[kk], db + 2 * kk, 1);
+  }
+}
+
+// A slot's B part in an fp32 ring: B's TF32 part and its rest, BN K-major
+// rows of 32 channels each (A is split in registers, not in the slot).
+template <int BN>
+constexpr int kF32BTile = 2 * BN * kRowBytes;
+
 // One 64-deep stage of a 64 x BN product: 4 wgmma k16 slices, A K-major
 // and B N-major.
 template <int BN>
@@ -398,6 +587,68 @@ __device__ __forceinline__ void consume(const Ring<STAGES, kBTile>& R, int k0,
   wgmma_wait<0>();
   fence_acc(acc);
   if (n > 0 && leader) mbar_arrive(R.empty((k0 + n - 1) % STAGES));
+}
+
+// Stages whose products sum in the tensor cores before they are added into
+// the running sums (consume_f32).
+constexpr int kPromote = 4;
+
+// A consumer warpgroup on fp32 operands (a ring of kF32BTile<BN> B parts),
+// for the n steps from ring position k0, as `consume` for bf16: each
+// stage's A rows are read and split into registers (load_split_a; two
+// stages' fragments, as one stage's products stay in flight while the next
+// one's rows are read) and multiplied in three passes (mma_stage_3xtf32).
+// The tensor cores' accumulation truncates each sum it adds into its
+// accumulator, so its error runs one way and grows with the additions (a
+// 4,096-deep sum erred ~3e-5 of its scale on an H100): kPromote stages
+// sum into part, from zero, and part is added into acc by FADD (round to
+// nearest).  A slot is released once its products are done.
+template <int BN, int STAGES, int kBTile>
+__device__ __forceinline__ void consume_f32(const Ring<STAGES, kBTile>& R,
+                                            int k0, int n,
+                                            float (&acc)[BN / 2], int wg) {
+  using Frag = uint32_t[4][4];
+  const int lane = threadIdx.x & 31;
+  const int r0 = 64 * wg + 16 * ((threadIdx.x >> 5) & 3) + (lane >> 2);
+  float part[BN / 2];
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) part[i] = 0.f;
+  Frag big0, small0, big1, small1;
+  // stage k into (big, small); (big_o, small_o) are stage k - 1's
+  auto step = [&](int k, Frag& big, Frag& small, Frag& big_o,
+                  Frag& small_o) {
+    const int i = k - k0, slot = k % STAGES;
+    mbar_wait(R.full(slot), (k / STAGES) & 1);
+    load_split_a(R.a(slot), r0, r0 + 8, big, small);
+    const unsigned char* b = R.b(slot);
+    fence_acc(part);
+    fence_frag(big);
+    fence_frag(small);
+    wgmma_fence();
+    mma_stage_3xtf32<BN>(part, big, small, desc_kmajor(b),
+                         desc_kmajor(b + BN * kRowBytes), i % kPromote > 0);
+    wgmma_commit();
+    fence_acc(part);
+    wgmma_wait<1>();  // stage k - 1's products are done
+    fence_frag(big_o);
+    fence_frag(small_o);
+    if (i > 0 && lane == 0) mbar_arrive(R.empty((k - 1) % STAGES));
+    if (i % kPromote == kPromote - 1 || i == n - 1) {
+      wgmma_wait<0>();
+      fence_acc(part);
+      fence_frag(big);
+      fence_frag(small);
+#pragma unroll
+      for (int j = 0; j < BN / 2; ++j) acc[j] += part[j];
+    }
+  };
+  int k = k0;
+  for (; k + 1 < k0 + n; k += 2) {
+    step(k, big0, small0, big1, small1);
+    step(k + 1, big1, small1, big0, small0);
+  }
+  if (k < k0 + n) step(k, big0, small0, big1, small1);
+  if (n > 0 && lane == 0) mbar_arrive(R.empty((k0 + n - 1) % STAGES));
 }
 
 // ------------------------------------------------------------- epilogue
@@ -518,20 +769,33 @@ inline EncodeTiled encode_fn() {
   return fn;
 }
 
-// A bf16 tensor map with the 128-byte swizzle and zero fill outside the
-// tensor: dims and box innermost first, strides in bytes of dims 1.. .
+// A tensor map of `type` with the 128-byte swizzle and zero fill outside
+// the tensor: dims and box innermost first, strides in bytes of dims 1.. .
 // Returns false if the driver refuses it.
-inline bool encode_bf16(CUtensorMap* map, const void* base, int rank,
-                        const cuuint64_t* dims, const cuuint64_t* strides,
-                        const cuuint32_t* box) {
+inline bool encode_map(CUtensorMap* map, CUtensorMapDataType type,
+                       const void* base, int rank, const cuuint64_t* dims,
+                       const cuuint64_t* strides, const cuuint32_t* box) {
   const EncodeTiled fn = encode_fn();
   if (!fn) return false;
   const cuuint32_t ones[5] = {1, 1, 1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank,
-            const_cast<void*>(base), dims, strides, box, ones,
-            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+  return fn(map, type, rank, const_cast<void*>(base), dims, strides, box,
+            ones, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+inline bool encode_bf16(CUtensorMap* map, const void* base, int rank,
+                        const cuuint64_t* dims, const cuuint64_t* strides,
+                        const cuuint32_t* box) {
+  return encode_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, base, rank, dims,
+                    strides, box);
+}
+
+inline bool encode_f32(CUtensorMap* map, const void* base, int rank,
+                       const cuuint64_t* dims, const cuuint64_t* strides,
+                       const cuuint32_t* box) {
+  return encode_map(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, base, rank, dims,
+                    strides, box);
 }
 
 // The HWIO weight as the (rows = 16 Cin, ldb) B matrix, 64 x 64 boxes.
@@ -542,6 +806,58 @@ inline bool encode_weight(CUtensorMap* map, const void* w, long long rows,
   const cuuint64_t strides[1] = {static_cast<cuuint64_t>(ldb) * 2};
   const cuuint32_t box[2] = {kBK, kBK};
   return encode_bf16(map, w, 2, dims, strides, box);
+}
+
+// ------------------------------------------------------ fp32 split weight
+
+// Channels of one fp32 stage: a 128-byte row.
+constexpr int kBK32 = kRowBytes / 4;
+
+// The HWIO weight w (depth = 16 Cin rows, ldb columns) fp32 -> ws (2, cout,
+// depth): plane 0 its TF32 part big = tf32_rna(w), plane 1 the rest
+// tf32_rna(w - big), both K-major (row n is output channel n's depth), as
+// tf32 wgmma reads B.  A kTile x kTile transpose through shared memory a
+// block of kTile x 8 threads: reads along n, writes along the depth.
+template <int kTile = 32>
+__global__ void __launch_bounds__(kTile * 8)
+split_weight_tf32(const float* w, int depth, int cout, int ldb, float* ws) {
+  __shared__ float t[kTile][kTile + 1];
+  const int k0 = blockIdx.x * kTile, n0 = blockIdx.y * kTile;
+  const int tx = threadIdx.x, ty = threadIdx.y;
+  for (int i = ty; i < kTile; i += 8) {
+    const int k = k0 + i, n = n0 + tx;
+    t[i][tx] = k < depth && n < cout
+                   ? w[static_cast<long long>(k) * ldb + n] : 0.f;
+  }
+  __syncthreads();
+  for (int i = ty; i < kTile; i += 8) {
+    const int n = n0 + i, k = k0 + tx;
+    if (n < cout && k < depth) {
+      const float v = t[tx][i], big = tf32_rna(v);
+      ws[static_cast<long long>(n) * depth + k] = big;
+      ws[(static_cast<long long>(cout) + n) * depth + k] = tf32_rna(v - big);
+    }
+  }
+}
+
+inline cudaError_t launch_split_weight(const float* w, int depth, int cout,
+                                       int ldb, float* ws, cudaStream_t s) {
+  const dim3 grid((depth + 31) / 32, (cout + 31) / 32);
+  split_weight_tf32<32><<<grid, dim3(32, 8), 0, s>>>(w, depth, cout, ldb, ws);
+  return cudaGetLastError();
+}
+
+// The split weight ws (2, cout, depth) as the map of its K-major B tiles:
+// boxes of 32 depth x bn channels of one plane (rows past cout are TMA's
+// zero fill, so Cout needs no padding).
+inline bool encode_weight_tf32(CUtensorMap* map, const float* ws,
+                               long long depth, int cout, int bn) {
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(depth),
+                              static_cast<cuuint64_t>(cout), 2};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(depth) * 4,
+                                 static_cast<cuuint64_t>(depth) * 4 * cout};
+  const cuuint32_t box[3] = {kBK32, static_cast<cuuint32_t>(bn), 1};
+  return encode_f32(map, ws, 3, dims, strides, box);
 }
 
 // The host work a launch needs once per kernel, device and dynamic shared

@@ -24,9 +24,16 @@ layers (Cin 64 to 256, Cout a multiple of 64, tensors from PyTorch's
 allocator) take no copy.
 
 fp32 operands (``train.precision="fp32"``, as the Pallas kernel takes them)
-run ``tg_conv_stats_f32``: the same function with fp32 products on the FFMA
-mainloop of ``csrc/igemm_f32.cuh``, x and w as they are, y in fp32; the
-backward is the same PyTorch VJP, in fp32.
+compute the same function with fp32 products, y in fp32, by a route
+decided from Cin before the launch (``kernel_common.f32_route``): where Cin
+is a multiple of 32 (every BN layer of the discriminators),
+``tg_conv_stats_tf32`` runs the same conv tile on the tensor cores in
+three TF32 passes over split operands (x copied only if off 16-byte
+alignment, the weight split once a call into a scratch of
+``torch.empty``), planned like the bf16 launch at 32 channels a stage
+(``plan_tf32``); elsewhere ``tg_conv_stats_f32``, the FFMA mainloop of
+``csrc/igemm_f32.cuh``, takes x and w as they are.  A route's failed
+launch raises.  The backward is the same PyTorch VJP, in fp32.
 """
 
 from __future__ import annotations
@@ -40,7 +47,7 @@ from tpugan_torch.ops import _build
 from tpugan_torch.ops.cuda_conv import (check_conv421, check_forward_only,
                                         conv421_plain)
 from tpugan_torch.ops.cuda_conv import wide_operands as kernel_operands
-from tpugan_torch.ops.kernel_common import check_operands
+from tpugan_torch.ops.kernel_common import aligned, check_operands, f32_route
 
 # Kernel launches made by ``conv_stats`` (CUDA tensors only).
 launches = 0
@@ -84,19 +91,24 @@ def _lib():
         lib.tg_conv_stats_f32.restype = ctypes.c_int
         lib.tg_conv_stats_f32_tiles.argtypes = [i, i, i, i]
         lib.tg_conv_stats_f32_tiles.restype = ctypes.c_int
-        lib.tg_conv_stats_plan.argtypes = [i, i, i, i, i, i,
-                                           ctypes.POINTER(i)]
-        lib.tg_conv_stats_plan.restype = None
+        lib.tg_conv_stats_tf32.argtypes = [p, p, p, p, p, p, i, i, i, i, i,
+                                           i, i, i, i, p]
+        lib.tg_conv_stats_tf32.restype = ctypes.c_int
+        for fn in (lib.tg_conv_stats_plan, lib.tg_conv_stats_tf32_plan):
+            fn.argtypes = [i, i, i, i, i, i, ctypes.POINTER(i)]
+            fn.restype = None
     return lib
 
 
 @functools.lru_cache(maxsize=None)
-def _plan(n: int, h: int, w: int, cin_p: int, cout: int,
-          device: int) -> tuple[int, int]:
+def _plan(n: int, h: int, w: int, cin_p: int, cout: int, device: int,
+          tf32: bool = False) -> tuple[int, ...]:
     sms = torch.cuda.get_device_properties(device).multi_processor_count
-    out = (ctypes.c_int * 2)()
-    _lib().tg_conv_stats_plan(n, h, w, cin_p, cout, sms, out)
-    return out[0], out[1]
+    out = (ctypes.c_int * 3)()
+    lib = _lib()
+    fn = lib.tg_conv_stats_tf32_plan if tf32 else lib.tg_conv_stats_plan
+    fn(n, h, w, cin_p, cout, sms, out)
+    return tuple(out[:3 if tf32 else 2])
 
 
 def plan(x, cout: int) -> tuple[int, int]:
@@ -106,14 +118,28 @@ def plan(x, cout: int) -> tuple[int, int]:
     return _plan(*x.shape, cout, x.device.index)
 
 
+def plan_tf32(x, cout: int) -> tuple[int, int, int]:
+    """(tiles_m, splits, tile width) of the three-pass TF32 route on an
+    fp32 CUDA input ``x`` (Cin a multiple of 32), as the library plans it:
+    ``plan``'s rule at 32 channels a stage and at most 2 blocks a tile,
+    64-wide tiles where 128-wide ones would leave half the card idle."""
+    return _plan(*x.shape, cout, x.device.index, True)
+
+
 def _launch(x, w, splits=None):
     """The kernel on CUDA tensors.  ``splits`` is for measurement only: it
-    overrides ``plan``'s depth split with another of 1, 2 or 4 dividing the
-    16 Cin / 64 stages."""
+    overrides the planned depth split with another of 1, 2 or 4 dividing
+    the 16 Cin / 64 stages (16 Cin / 32 on the TF32 route; the FFMA route
+    has no split)."""
     global launches
     cout = w.shape[-1]
     lib = _lib()
-    if x.dtype == torch.float32:
+    route = f32_route(x.shape[3]) if x.dtype == torch.float32 else "bf16"
+    if route == "tf32":
+        x, w = aligned(x.contiguous()), w.contiguous()
+        n, h, wd, cin = x.shape
+        tiles_m, planned, bn = plan_tf32(x, cout)
+    elif route == "ffma":
         # the FFMA mainloop takes the operands as they are
         x, w = x.contiguous(), w.contiguous()
         n, h, wd, cin = x.shape
@@ -130,7 +156,15 @@ def _launch(x, w, splits=None):
     stats = buf.data_ptr()
     stream = _build.stream_ptr(x.device.index)
     with torch.cuda.device(x.device):
-        if x.dtype == torch.float32:
+        if route == "tf32":
+            # scratch: the weight's TF32 part and rest, K-major
+            ws = torch.empty(32 * cout * cin, dtype=torch.float32,
+                             device=x.device)
+            rc = lib.tg_conv_stats_tf32(
+                x.data_ptr(), w.data_ptr(), ws.data_ptr(), y.data_ptr(),
+                stats + 8 * cout, stats, n, h, wd, cin, cout, cout,
+                splits or planned, tiles_m, bn, stream)
+        elif route == "ffma":
             rc = lib.tg_conv_stats_f32(
                 x.data_ptr(), w.data_ptr(), y.data_ptr(), stats + 8 * cout,
                 stats, n, h, wd, cin, cout, cout, tiles_m, stream)
@@ -149,7 +183,8 @@ def conv_stats(x, w):
     variance over (N, H/2, W/2), clamped at >= 0.
 
     Returns (y in x's dtype, mean f32, var f32).  Forward-only; x and w are
-    bf16, or fp32 (fp32 products on the card), of one dtype.
+    bf16, or fp32 (fp32 products on the card, by the route
+    ``kernel_common.f32_route`` gives Cin), of one dtype.
     """
     check_conv421(x, w)
     check_forward_only("conv_stats", x, w)

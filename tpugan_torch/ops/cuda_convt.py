@@ -26,11 +26,18 @@ it.  Importing this module registers the op, which loading an exported
 program needs.
 
 fp32 operands (``train.precision="fp32"``, as the Pallas kernel takes them)
-run ``tg_convt_affine_act_f32``: the same four phase GEMMs with fp32
-products on the FFMA mainloop of ``csrc/igemm_f32.cuh``, in one launch,
-which takes x and w as they are (any Cin and Cout, no padding).  The op's
-dtype rule (``kernel_common.check_operands``: x and w of one dtype, bf16 or
-fp32) holds on every device.
+run the same four phase GEMMs with fp32 products, in one launch, by a route
+decided from Cin before the launch (``kernel_common.f32_route``): where Cin
+is a multiple of 32 (every layer of the generators at their widths),
+``tg_convt_affine_act_tf32`` runs them on the tensor cores in three TF32
+passes over split operands, every Cout included (x copied only if off
+16-byte alignment; the weight split once a call into a scratch of
+``torch.empty``, or, for Cout <= 4 and Cin <= 64, split into shared
+memory by the kernel); elsewhere ``tg_convt_affine_act_f32``, the FFMA mainloop
+of ``csrc/igemm_f32.cuh``, takes x and w as they are (any Cin and Cout).
+A route's failed launch raises.  The op's dtype rule
+(``kernel_common.check_operands``: x and w of one dtype, bf16 or fp32)
+holds on every device.
 
 The bf16 kernel reads x, and w where Cout > 8, by TMA, which needs rows of a
 multiple of 16 bytes and 16-byte-aligned bases.  ``kernel_operands`` states
@@ -50,8 +57,8 @@ import torch.nn.functional as F
 
 from tpugan_torch.ops import _build
 from tpugan_torch.ops.kernel_common import (ACT_CODES, TAPS, aligned,
-                                            check_operands, pad_dim,
-                                            round_up)
+                                            check_operands, f32_route,
+                                            pad_dim, round_up)
 from tpugan_torch.ops.kernel_common import act as _act
 
 # Kernel launches made by the op ``convt_affine_act`` (CUDA tensors only),
@@ -117,6 +124,9 @@ def _lib():
             fn.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i,
                            ctypes.c_float, i, p]
             fn.restype = ctypes.c_int
+        lib.tg_convt_affine_act_tf32.argtypes = [
+            p, p, p, p, p, p, i, i, i, i, i, i, i, ctypes.c_float, i, p]
+        lib.tg_convt_affine_act_tf32.restype = ctypes.c_int
     return lib
 
 
@@ -138,12 +148,20 @@ def _launch(x, w, scale, shift, act, leak, out_dtype):
     global launches
     dev = x.device
     cout = w.shape[-1]
-    if x.dtype == torch.float32:
+    lib = _lib()
+    route = f32_route(x.shape[3]) if x.dtype == torch.float32 else "bf16"
+    scratch = []  # the TF32 route's: the split weight, alive to the launch
+    if route == "tf32":
+        fn, ldb = lib.tg_convt_affine_act_tf32, cout
+        x, w = aligned(x.contiguous()), w.contiguous()
+        scratch = [torch.empty(32 * cout * x.shape[3], dtype=torch.float32,
+                               device=dev)]
+    elif route == "ffma":
         # the FFMA mainloop takes the operands as they are
-        fn, ldb = _lib().tg_convt_affine_act_f32, cout
+        fn, ldb = lib.tg_convt_affine_act_f32, cout
         x, w = x.contiguous(), w.contiguous()
     else:
-        fn = _lib().tg_convt_affine_act
+        fn = lib.tg_convt_affine_act
         x, w, ldb = kernel_operands(x.contiguous(), w.contiguous())
     a = scale.to(torch.float32).contiguous()
     b = shift.to(torch.float32).contiguous()
@@ -151,7 +169,8 @@ def _launch(x, w, scale, shift, act, leak, out_dtype):
     y = torch.empty((n, 2 * h, 2 * wd, cout), dtype=out_dtype, device=dev)
     with torch.cuda.device(dev):
         rc = fn(
-            x.data_ptr(), w.data_ptr(), a.data_ptr(), b.data_ptr(),
+            x.data_ptr(), w.data_ptr(), *(t.data_ptr() for t in scratch),
+            a.data_ptr(), b.data_ptr(),
             y.data_ptr(), n, h, wd, cin, cout, ldb, ACT_CODES[act],
             float(leak), int(out_dtype == torch.float32),
             _build.stream_ptr(dev.index))

@@ -22,6 +22,21 @@ ACT_CODES = {"none": 0, "relu": 1, "leaky_relu": 2, "tanh": 3}
 OPERAND_DTYPES = (torch.bfloat16, torch.float32)
 
 
+# fp32 operands of kernels 1 and 5 take the three-pass TF32 route on the
+# Hopper mainloop where Cin is a multiple of TF32_CIN (32 fp32 channels
+# fill a stage's 128-byte row), and the FFMA mainloop (csrc/igemm_f32.cuh)
+# elsewhere: the narrow fp32 path.
+TF32_CIN = 32
+
+
+def f32_route(cin: int) -> str:
+    """The route of kernels 1 and 5 on fp32 operands with ``cin`` input
+    channels, decided before the launch: "tf32" (three TF32 passes over
+    split operands on the tensor cores) or "ffma" (the CUDA cores).  A
+    route's failed launch raises; nothing falls back to the other."""
+    return "tf32" if cin % TF32_CIN == 0 else "ffma"
+
+
 def check_operands(x, w, out_dtype, *others) -> None:
     """The conv kernels' operand contract, on every device (the plain
     versions keep it too): x and w of one dtype, bf16 or fp32; out bf16 or
