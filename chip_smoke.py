@@ -169,11 +169,14 @@ Phases, each of which fails the run (no exception is caught):
    TF32 off: kernels 1, 4 and 5 on fp32 x and w at the path's shapes
    (kernel 1 at the fp32 generator's four layers, batch 256; kernel 4 at
    its D's four layers, batch 128, and the conditional D's Cin-4 layer;
-   kernel 5 at the three BN layers, batches 128 and 64), each within 1e-5
-   of the layer's largest |ref| of its plain version, with two TF32 runs
-   of the same function beside (cuDNN with TF32 on; the plain version on
-   TF32-rounded operands), timed beside cuDNN in fp32 and bound at the
-   fp32 FMA rate; then full-width fp32 ``dcgan_celeba64`` trained with
+   kernel 5 at the three BN layers, batches 128 and 64), each on its
+   wrapper's route (three TF32 passes; kernel 4's RGB layers on its narrow
+   tile), within 1e-5 of the layer's largest |ref| of its plain version
+   and the same bits on a second run, with two TF32 runs of the same
+   function beside (cuDNN with TF32 on; the plain version on TF32-rounded
+   operands), timed beside cuDNN in fp32 and bound on the route's rate
+   (the FFMA rate's bound beside); then full-width fp32
+   ``dcgan_celeba64`` trained with
    ``fuse_stats`` on and off from one seed (step 1's losses within 1e-3,
    exactly 9 kernel-5 launches a step, steps timed in turns), its D in
    eval mode under "pallas" against "xla" (4 kernel-4 launches a
@@ -205,7 +208,10 @@ package beside this file.
     python3 chip_smoke.py --against DIR
 
 compares megakernel v2 of the checkout in DIR (the parent commit, say) with
-this one's, in turns on one card: the same image bits, and each run's times.
+this one's, in turns on one card: the same image bits, and each run's times;
+and the conv kernels' device ms by layer (``--measure-convs``: kernel 4 at
+fp32 and bf16 at the eval D's layers, kernel 5 at fp32 and bf16, kernel 1
+at fp32).
 
     python3 chip_smoke.py --mesh-tolerance
 
@@ -236,9 +242,9 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 
 # H100 SXM dense peaks (NVIDIA data sheet), at the full 700 W power limit:
-# bf16 and TF32 on the tensor cores (the fp32 route of kernels 1 and 5 runs
-# its products as three TF32 passes over split operands), fp32 FMA on the
-# CUDA cores (the FFMA mainloop's products), and memory
+# bf16 and TF32 on the tensor cores (the fp32 routes of kernels 1, 4 and 5
+# run their products as three TF32 passes over split operands), fp32 FMA
+# on the CUDA cores (the FFMA mainloop's products), and memory
 PEAK_BF16_FLOPS = 989e12
 PEAK_TF32_FLOPS = 495e12
 PEAK_FP32_FLOPS = 67e12
@@ -1012,17 +1018,18 @@ def cli_phase(dev, zero_counts, read_counts) -> dict:
 
 def f32_bound(route: str, flops: float, nbytes: float) -> tuple[float, str]:
     """The least time of an fp32 kernel's work on its route: three TF32
-    passes at ``PEAK_TF32_FLOPS`` ("tf32") or FFMA at ``PEAK_FP32_FLOPS``
-    ("ffma"), or its bytes."""
-    if route == "tf32":
+    passes at ``PEAK_TF32_FLOPS`` ("tf32", "tf32_narrow") or FFMA at
+    ``PEAK_FP32_FLOPS`` ("ffma"), or its bytes."""
+    if route.startswith("tf32"):
         return bound_ms(3 * flops, nbytes, PEAK_TF32_FLOPS)
     return bound_ms(flops, nbytes, PEAK_FP32_FLOPS)
 
 
 def f32_case(kernel: str, shape: str, route: str, run, plain, plain_tf32,
              library, check, flops, byt, **extra) -> dict:
-    """One layer of an fp32 kernel on ``route`` ("tf32" or "ffma", the one
-    the wrapper takes: ``kernel_common.f32_route``): ``run()`` (the kernel)
+    """One layer of an fp32 kernel on ``route`` (the one the wrapper takes:
+    ``kernel_common.f32_route``, kernel 4's ``cuda_conv.f32_path``; "tf32",
+    "tf32_narrow" or "ffma"): ``run()`` (the kernel)
     against ``plain()`` (its plain version) by ``check(got, ref)`` -> (max
     err, scale, ok).  Beside it, by the same check, two TF32 runs of the
     same function: ``library()`` (one PyTorch call, its result in the
@@ -1084,15 +1091,15 @@ def f32_summary(cases: list, main: int) -> dict:
 
 def fp32_kernels(dev, real) -> dict:
     """Phase 21 (a): kernels 1, 4 and 5 on fp32 operands at the fp32 path's
-    shapes, each on the route its wrapper takes (kernels 1 and 5 three TF32
-    passes, kernel 4 FFMA) against its plain version (``f32_check``), with
-    the error of a TF32 run of its library call beside: kernel 1 at the
-    four layers of the fp32 ``dcgan_celeba64`` generator at batch 256, on
-    its own activations; kernel 4 at the four layers of its discriminator
-    at batch 128 (``real``, fp32 images) and the conditional D's first
-    layer (Cin 4); kernel 5 at the three BN layers at batches 128 and 64.
-    Kernels 1 and 5 give the same bits on a second run.  Returns each
-    kernel's ``f32_summary``."""
+    shapes, each on the route its wrapper takes (three TF32 passes: kernel
+    4's RGB layers on its narrow tile) against its plain version
+    (``f32_check``), with the error of a TF32 run of its library call
+    beside: kernel 1 at the four layers of the fp32 ``dcgan_celeba64``
+    generator at batch 256, on its own activations; kernel 4 at the four
+    layers of its discriminator at batch 128 (``real``, fp32 images) and
+    the conditional D's first layer (Cin 4); kernel 5 at the three BN
+    layers at batches 128 and 64.  Every kernel gives the same bits on a
+    second run.  Returns each kernel's ``f32_summary``."""
     import torch
     import torch.nn.functional as F
 
@@ -1181,10 +1188,11 @@ def fp32_kernels(dev, real) -> dict:
             return F.leaky_relu(y, leak).permute(0, 2, 3, 1)
 
         flops, byt = conv_work(x, w, n * (h // 2) * (wd // 2) * cout * 4)
+        shape = f"{n}x{h}x{wd}x{cin}->{h // 2}x{wd // 2}x{cout}"
         return f32_case(
-            "conv_affine_act", f"{n}x{h}x{wd}x{cin}->{h // 2}x{wd // 2}x"
-            f"{cout}", "ffma",
-            lambda: cuda_conv.conv_affine_act(x, w, a, b, leak=leak),
+            "conv_affine_act", shape, cuda_conv.f32_path(cin, cout),
+            twice(f"conv_affine_act fp32 {shape}",
+                  lambda: cuda_conv.conv_affine_act(x, w, a, b, leak=leak)),
             lambda: cuda_conv.conv_affine_act_plain(x, w, a, b, leak=leak),
             lambda: cuda_conv.conv_affine_act_plain(
                 tf32_round(x), tf32_round(w), a, b, leak=leak),
@@ -1477,26 +1485,133 @@ def measure_v2(tree: str) -> int:
     return 0
 
 
+def measure_convs(tree: str) -> int:
+    """``--measure-convs TREE``: the conv kernels of the port in checkout
+    TREE, by layer, on seeded inputs (TF32 off in cuDNN): kernel 4 at fp32
+    and bf16 at the four layers of the full-width ``dcgan_celeba64`` eval
+    D at batch ``TRAIN_BATCH`` (seeded images in [-1, 1], each layer's
+    input the plain version's output of the one before) and the
+    conditional D's Cin-4 layer, each with its error against the plain
+    version and cuDNN's fp32 call beside; kernel 5 at fp32 and bf16 at the
+    three BN layers; kernel 1 at fp32 at the generator's four layers at
+    ``BATCH``.  One JSON line of device ms (``graph_ms``) and kernel 4's
+    eager ms (``time_ms``)."""
+    import torch
+    import torch.nn.functional as F
+
+    sys.path.insert(0, str(Path(tree).resolve()))
+    from tpugan_torch.configs import get_preset
+    from tpugan_torch.models.registry import build_discriminator
+    from tpugan_torch.ops import (_build, cuda_conv, cuda_conv_stats,
+                                  cuda_convt, cuda_gen)
+    from tpugan_torch.ops.fused import bn_affine
+
+    require(torch.cuda.is_available(), "no CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    secs = _build.build_all()["cuda_conv"][0]
+    gen = torch.Generator(device=dev).manual_seed(0)
+    d = build_discriminator(get_preset("dcgan_celeba64").model, "fp32",
+                            device=dev, generator=torch.Generator(device=dev)
+                            .manual_seed(1)).eval()
+    rows = []
+    with torch.no_grad():
+        x = torch.rand((TRAIN_BATCH, 64, 64, 3), generator=gen,
+                       device=dev) * 2 - 1
+        x4 = torch.cat([x, torch.ones_like(x[..., :1])], -1).contiguous()
+        layers = []
+        for blk in d.blocks:
+            w = blk.conv.w.float().contiguous()
+            if blk.bn is None:
+                a, b = torch.ones_like(w[0, 0, 0]), blk.conv.b.float()
+            else:
+                a, b = bn_affine(blk.bn.scale, blk.bn.bias, blk.bn.mean,
+                                 blk.bn.var, blk.bn.eps)
+            layers.append((x, w, a, b, blk.act.slope))
+            x = cuda_conv.conv_affine_act_plain(x, w, a, b,
+                                                leak=blk.act.slope)
+        w0, a0, b0, leak0 = layers[0][1:]
+        layers.append((x4, torch.cat([w0, w0[:, :, :1]], 2).contiguous(), a0,
+                       b0, leak0))
+        for x, w, a, b, leak in layers:
+            xl = x.permute(0, 3, 1, 2)
+            wl = w.permute(3, 2, 0, 1).contiguous(
+                memory_format=torch.channels_last)
+            xb, wb = x.bfloat16(), w.bfloat16()
+
+            def k4(x=x, w=w, a=a, b=b, leak=leak):
+                return cuda_conv.conv_affine_act(x, w, a, b, leak=leak)
+
+            def library(xl=xl, wl=wl, a=a, b=b, leak=leak):
+                y = F.conv2d(xl, wl, stride=2, padding=1)
+                return F.leaky_relu(y * a.view(1, -1, 1, 1)
+                                    + b.view(1, -1, 1, 1), leak)
+
+            ref = cuda_conv.conv_affine_act_plain(x, w, a, b, leak=leak)
+            row = dict(
+                shape=list(x.shape) + [w.shape[3]],
+                k4_f32_device_ms=graph_ms(k4, 20), k4_f32_ms=time_ms(k4, 20),
+                cudnn_f32_device_ms=graph_ms(library, 20),
+                k4_f32_rel_err=((k4() - ref).abs().max()
+                                / ref.abs().max()).item(),
+                k4_bf16_device_ms=graph_ms(
+                    lambda: cuda_conv.conv_affine_act(xb, wb, a, b,
+                                                      leak=leak), 20))
+            if x.shape[3] % 64 == 0:  # a BN layer: kernel 5 too
+                row["k5_f32_device_ms"] = graph_ms(
+                    lambda: cuda_conv_stats.conv_stats(x, w), 20)
+                row["k5_bf16_device_ms"] = graph_ms(
+                    lambda: cuda_conv_stats.conv_stats(xb, wb), 20)
+            rows.append(row)
+        cfg, g = make_generator("dcgan_celeba64", dev,
+                                {"train.precision": "fp32"})
+        _, blocks, _ = cuda_gen.fold_generator(g)
+        x = g.head(torch.randn((BATCH, cfg.model.nz), generator=gen,
+                               device=dev))
+        k1 = []
+        for i, (w, a, b) in enumerate(blocks):
+            act = "tanh" if i == len(blocks) - 1 else "relu"
+            w = w.float().contiguous()
+            k1.append(graph_ms(lambda: cuda_convt.convt_affine_act(
+                x, w, a, b, act=act), 20))
+            x = cuda_convt.convt_affine_act_plain(x, w, a, b, act=act)
+    sums = {f"{k}_sum": sum(r[k] for r in rows[:4] if k in r)
+            for k in ("k4_f32_device_ms", "k4_f32_ms", "cudnn_f32_device_ms",
+                      "k4_bf16_device_ms", "k5_f32_device_ms",
+                      "k5_bf16_device_ms")}
+    print(json.dumps(dict(tree=str(tree), source=cuda_conv.__file__,
+                          card=card(), build_s=secs, **sums,
+                          k1_f32_device_ms_sum=sum(k1), k1_f32_device_ms=k1,
+                          layers=rows)))
+    return 0
+
+
 def against(other: str) -> int:
-    """``--against DIR``: megakernel v2 of the checkout in DIR (the parent
+    """``--against DIR``: the kernels of the checkout in DIR (the parent
     commit, say) and of this one, in turns on one card (DIR, this, this,
-    DIR), each in a process of its own (``--measure-v2``): the same image
-    bits on the same seeded input, and each run's times and registers."""
-    runs = []
+    DIR), each measurement in a process of its own: megakernel v2
+    (``--measure-v2``: the same image bits on the same seeded input, each
+    run's times and registers) and the conv kernels by layer
+    (``--measure-convs``)."""
+    runs, convs = [], []
     for tree in (other, ROOT, ROOT, other):
-        proc = subprocess.run([sys.executable, __file__, "--measure-v2",
-                               str(tree)], capture_output=True, text=True,
-                              timeout=900)
-        require(proc.returncode == 0,
-                f"--measure-v2 {tree} failed:\n{proc.stdout}{proc.stderr}")
-        runs.append(json.loads(proc.stdout.strip().splitlines()[-1]))
-        log(f"[against] {json.dumps(runs[-1])}")
+        for mode, into in (("--measure-v2", runs), ("--measure-convs", convs)):
+            proc = subprocess.run([sys.executable, __file__, mode, str(tree)],
+                                  capture_output=True, text=True, timeout=900)
+            require(proc.returncode == 0,
+                    f"{mode} {tree} failed:\n{proc.stdout}{proc.stderr}")
+            into.append(json.loads(proc.stdout.strip().splitlines()[-1]))
+            log(f"[against] {json.dumps(into[-1])}")
     require(len({r["sha256"] for r in runs}) == 1,
             "v2's image differs between the two checkouts")
     for label, pick in (("other", (0, 3)), ("this", (1, 2))):
-        log(f"[against] {label}: ms "
+        log(f"[against] {label}: v2 ms "
             f"{', '.join(str(runs[i]['ms']) for i in pick)}; device_ms "
             f"{', '.join(str(runs[i]['device_ms']) for i in pick)}")
+        for key in sorted(k for k in convs[0] if k.endswith("_sum")):
+            log(f"[against] {label}: {key} "
+                f"{', '.join(str(convs[i][key]) for i in pick)}")
     log("[against] the same image bits in all four runs")
     return 0
 
@@ -3832,6 +3947,8 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--measure-v2"]:
         sys.exit(measure_v2(sys.argv[2]))
+    if sys.argv[1:2] == ["--measure-convs"]:
+        sys.exit(measure_convs(sys.argv[2]))
     if sys.argv[1:2] == ["--against"]:
         sys.exit(against(sys.argv[2]))
     if sys.argv[1:2] == ["--mesh-tolerance"]:

@@ -410,9 +410,10 @@ def test_conv_kernels_take_unaligned_operands(cuda):
 
 
 # ---------------------------------------------------------------------------
-# fp32 operands (train.precision="fp32"): kernels 1 and 5 by three TF32
-# passes where Cin is a multiple of 32, else (and kernel 4 always) the FFMA
-# kernels of igemm_f32.cuh
+# fp32 operands (train.precision="fp32"): kernels 1, 4 and 5 by three TF32
+# passes where Cin is a multiple of 32, kernel 4 also on its narrow TF32
+# tile at Cin <= 16 with Cout <= 128, else the FFMA kernels of
+# igemm_f32.cuh
 # ---------------------------------------------------------------------------
 
 F32 = torch.float32
@@ -549,8 +550,9 @@ def test_f32_kernels_give_the_same_bits_twice(cuda_f32, n, h, w, cin, cout):
 
 
 def test_f32_kernels_take_unaligned_operands(cuda_f32):
-    """fp32 operands 4 bytes off 16-byte alignment, read as they are: the
-    copies fall back to 4 bytes, the same values."""
+    """fp32 operands 4 bytes off 16-byte alignment at Cin 64, on each
+    kernel's TF32 route (x copied for TMA, w read as it is by the weight
+    split): the same values."""
     n, h, w, cin, cout = 2, 8, 8, 64, 32
     gen, x, wt = _f32_operands(cuda_f32, n, h, w, cin, cout, 9)
     xs = torch.empty(x.numel() + 1, device=cuda_f32)[1:].view(x.shape)
@@ -633,35 +635,48 @@ def test_conv_stats_tf32_route_matches_plain(cuda_f32, n, h, w, cin, cout,
     assert all(torch.equal(u, v) for u, v in zip(runs[0], again))
 
 
-# (cin, route): the fp32 route each Cin takes, decided before the launch
-F32_ROUTES = [(64, "tf32"), (32, "tf32"), (96, "tf32"), (8, "ffma"),
-              (3, "ffma"), (48, "ffma")]
+# (cin, route of kernels 1 and 5, route of kernel 4 at Cout 16): the fp32
+# route each Cin takes, decided before the launch
+F32_ROUTES = [(64, "tf32", "tf32"), (32, "tf32", "tf32"),
+              (96, "tf32", "tf32"), (8, "ffma", "tf32_narrow"),
+              (3, "ffma", "tf32_narrow"), (48, "ffma", "ffma"),
+              (1, "ffma", "tf32_narrow"), (16, "ffma", "tf32_narrow"),
+              (20, "ffma", "ffma")]
+ENTRY_SUFFIX = {"tf32": "tf32", "tf32_narrow": "tf32_narrow", "ffma": "f32"}
 
 
 def test_f32_shapes_take_their_route(cuda_f32, monkeypatch):
     """Each fp32 shape launches its route's entry point and no other:
-    three TF32 passes where Cin is a multiple of 32, the FFMA mainloop
-    elsewhere (``kernel_common.f32_route``)."""
+    three TF32 passes where Cin is a multiple of 32, kernel 4's narrow
+    TF32 tile at Cin <= 16, the FFMA mainloop elsewhere
+    (``kernel_common.f32_route``, ``cuda_conv.f32_path``)."""
     called = []
     entries = {cuda_convt: ("tg_convt_affine_act_tf32",
                             "tg_convt_affine_act_f32"),
-               cuda_conv_stats: ("tg_conv_stats_tf32", "tg_conv_stats_f32")}
+               cuda_conv_stats: ("tg_conv_stats_tf32", "tg_conv_stats_f32"),
+               cuda_conv: ("tg_conv_affine_act_tf32",
+                           "tg_conv_affine_act_tf32_narrow",
+                           "tg_conv_affine_act_f32")}
     for mod, names in entries.items():
         lib = mod._lib()
         for name in names:
             monkeypatch.setattr(lib, name, lambda *a, fn=getattr(lib, name),
                                 name=name: called.append(name) or fn(*a))
-    for cin, route in F32_ROUTES:
+    for cin, route, path in F32_ROUTES:
         assert f32_route(cin) == route
+        assert cuda_conv.f32_path(cin, 16) == path
         gen, x, wt = _f32_operands(cuda_f32, 2, 8, 8, cin, 16, cin)
         one = torch.ones(16, device=cuda_f32)
         called.clear()
         cuda_convt.convt_affine_act(x, wt, one, 0 * one)
         cuda_conv_stats.conv_stats(x, wt)
+        cuda_conv.conv_affine_act(x, wt, one, 0 * one)
         torch.cuda.synchronize()
-        suffix = "tf32" if route == "tf32" else "f32"
+        suffix = ENTRY_SUFFIX[route]
         assert called == [f"tg_convt_affine_act_{suffix}",
-                          f"tg_conv_stats_{suffix}"], (cin, called)
+                          f"tg_conv_stats_{suffix}",
+                          f"tg_conv_affine_act_{ENTRY_SUFFIX[path]}"], (
+            cin, called)
 
 
 def test_tf32_route_launch_failure_raises(cuda_f32, monkeypatch):
@@ -678,6 +693,102 @@ def test_tf32_route_launch_failure_raises(cuda_f32, monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA error"):
         cuda_conv_stats.conv_stats(x, wt)
     assert (cuda_convt.launches, cuda_conv_stats.launches) == before
+
+
+# kernel 4's two TF32 tiles: the eval D's four layers (batch 2-4, the last
+# split over a cluster), the conditional D's Cin-4 layer and dcgan_mnist's
+# Cin-1 layer; the narrow tile at Cin 1, 3, 4, 5, 8 and 16 (Cin above 4:
+# one stage at a time) with Cout 1, 7, 65 (a ragged second chunk), 100
+# and 128, odd batches, non-square maps, a 2x2 map in boxes of 128 images
+# (the largest window); the wide tile at Cin 32 and 96 with Cout 24, 40
+# and 136 (a ragged 64- or 128-wide tile)
+TF32_CONV_SHAPES = D_SHAPES + [
+    (2, 64, 64, 4, 64), (2, 28, 28, 1, 32), (3, 10, 6, 3, 7),
+    (1, 4, 2, 16, 3), (3, 14, 10, 16, 128), (1, 6, 4, 8, 100),
+    (2, 2, 2, 1, 1), (3, 6, 10, 4, 65), (1, 2, 2, 5, 9),
+    (129, 2, 2, 16, 64), (128, 2, 2, 4, 128), (5, 6, 6, 32, 24),
+    (1, 8, 8, 32, 40), (3, 12, 20, 96, 136)]
+
+
+@pytest.mark.parametrize("act", ["leaky_relu", "relu", "tanh", "none"])
+@pytest.mark.parametrize("out_dtype", [F32, BF])
+@pytest.mark.parametrize("n,h,w,cin,cout", TF32_CONV_SHAPES)
+def test_conv_tf32_routes_match_plain(cuda_f32, n, h, w, cin, cout, act,
+                                      out_dtype):
+    """Kernel 4 on its TF32 routes against its plain version, every
+    activation, fp32 and bf16 out; two runs give the same bits."""
+    assert cuda_conv.f32_path(cin, cout) in ("tf32", "tf32_narrow")
+    gen, x, wt = _f32_operands(cuda_f32, n, h, w, cin, cout, cin + cout + n)
+    a, b = _rand((cout,), gen, cuda_f32), _rand((cout,), gen, cuda_f32)
+    before = cuda_conv.launches
+    runs = [cuda_conv.conv_affine_act(x, wt, a, b, act=act, leak=0.1,
+                                      out_dtype=out_dtype) for _ in range(2)]
+    assert cuda_conv.launches == before + 2
+    ref = cuda_conv.conv_affine_act_plain(x, wt, a, b, act=act, leak=0.1,
+                                          out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    got = runs[0]
+    assert got.dtype == out_dtype and got.shape == (n, h // 2, w // 2, cout)
+    assert torch.equal(got, runs[1])
+    if out_dtype == F32:
+        assert_f32_kernel_close(got, ref, _pre_tanh_scale(
+            cuda_conv.conv_affine_act_plain, act, x, wt, a, b, leak=0.1))
+    else:
+        assert_bf16_close(got, ref)
+
+
+@pytest.mark.parametrize("splits", [None, 1, 2, 4])
+@pytest.mark.parametrize("n,h,w,cin,cout", [(4, 8, 8, 256, 512),
+                                            (1, 8, 8, 64, 136),
+                                            (2, 10, 6, 32, 40)])
+def test_conv_tf32_route_splits_give_the_same_bits(cuda_f32, n, h, w, cin,
+                                                   cout, splits):
+    """Kernel 4's wide TF32 route at its planned depth split and at 1, 2
+    and 4 (``_launch(..., splits=)``): the affine and the activation after
+    the cluster's rank-ordered reduction, so two runs give the same bits,
+    within the fp32 limit of the plain version."""
+    gen, x, wt = _f32_operands(cuda_f32, n, h, w, cin, cout, cin * cout)
+    a, b = _rand((cout,), gen, cuda_f32), _rand((cout,), gen, cuda_f32)
+    runs = [cuda_conv._launch(x, wt, a, b, "leaky_relu", 0.2, F32,
+                              splits=splits) for _ in range(2)]
+    ref = cuda_conv.conv_affine_act_plain(x, wt, a, b)
+    torch.cuda.synchronize()
+    assert torch.equal(runs[0], runs[1])
+    assert_f32_kernel_close(runs[0], ref)
+
+
+@pytest.mark.parametrize("cin,cout", [(3, 64), (16, 128)])
+def test_conv_tf32_narrow_takes_unaligned_operands(cuda_f32, cin, cout):
+    """fp32 operands 4 bytes off 16-byte alignment, which the narrow tile
+    reads as they are (plain loads): the same bits as aligned operands.
+    ``test_f32_kernels_take_unaligned_operands`` holds the wide route."""
+    gen, x, wt = _f32_operands(cuda_f32, 3, 8, 6, cin, cout, cin)
+    xs = torch.empty(x.numel() + 1, device=cuda_f32)[1:].view(x.shape)
+    ws = torch.empty(wt.numel() + 1, device=cuda_f32)[1:].view(wt.shape)
+    xs.copy_(x)
+    ws.copy_(wt)
+    assert xs.data_ptr() % 16 and ws.data_ptr() % 16
+    a, b = _rand((cout,), gen, cuda_f32), _rand((cout,), gen, cuda_f32)
+    got = cuda_conv.conv_affine_act(xs, ws, a, b)
+    ref = cuda_conv.conv_affine_act(x, wt, a, b)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref)
+
+
+def test_conv_tf32_launch_failure_raises(cuda_f32, monkeypatch):
+    """A launch a TF32 tile refuses (a Cin it does not take, sent to it by
+    a patched rule: 8 to the wide tile, 48 to the narrow one) raises;
+    nothing falls back to the FFMA mainloop or the plain version, and no
+    launch is counted."""
+    for path, cin in (("tf32", 8), ("tf32_narrow", 48)):
+        monkeypatch.setattr(cuda_conv, "f32_path",
+                            lambda cin, cout, path=path: path)
+        gen, x, wt = _f32_operands(cuda_f32, 2, 8, 8, cin, 16, 5)
+        one = torch.ones(16, device=cuda_f32)
+        before = cuda_conv.launches
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            cuda_conv.conv_affine_act(x, wt, one, 0 * one)
+        assert cuda_conv.launches == before
 
 
 def test_conv_bn_stats_f32_backward_matches_autograd_of_plain(cuda_f32):

@@ -251,10 +251,10 @@ def test_wrappers_refuse_an_fp16_output(kernel):
 
 
 # ---------------------------------------------------------------------------
-# The three-pass TF32 scheme of kernels 1 and 5 at fp32 (the card's route
-# where Cin is a multiple of 32), emulated on the CPU at every layer of the
-# two paths at full depth, batch 2, against the JAX package's fp32 Pallas
-# kernels in interpret mode
+# The three-pass TF32 scheme of kernels 1, 4 and 5 at fp32 (the card's
+# route where Cin is a multiple of 32, and kernel 4's narrow tile at Cin <=
+# 16), emulated on the CPU at every layer of the paths at full depth, batch
+# 2, against the JAX package's fp32 Pallas kernels in interpret mode
 # ---------------------------------------------------------------------------
 
 def tf32_round(t):
@@ -281,25 +281,34 @@ def three_pass(product, x, w):
 
 
 # (kernel, n, h, cin, cout): the D's BN layers (kernel 5) and the G's
-# ConvT layers (kernel 1) of dcgan_celeba64 at full width, batch 2
+# ConvT layers (kernel 1) of dcgan_celeba64 at full width, batch 2; the
+# eval D's four layers (kernel 4: the RGB layer on the narrow tile), the
+# conditional D's Cin-4 layer and dcgan_mnist's Cin-1 layer
 TF32_LAYERS = [("conv_stats", 2, 32, 64, 128), ("conv_stats", 2, 16, 128, 256),
                ("conv_stats", 2, 8, 256, 512), ("convt", 2, 4, 512, 256),
                ("convt", 2, 8, 256, 128), ("convt", 2, 16, 128, 64),
-               ("convt", 2, 32, 64, 3)]
+               ("convt", 2, 32, 64, 3), ("conv", 2, 64, 3, 64),
+               ("conv", 2, 32, 64, 128), ("conv", 2, 16, 128, 256),
+               ("conv", 2, 8, 256, 512), ("conv", 2, 64, 4, 64),
+               ("conv", 2, 28, 1, 32)]
 
 
 @pytest.mark.parametrize("kernel,n,h,cin,cout", TF32_LAYERS)
 def test_three_tf32_passes_match_the_fp32_pallas_kernels(kernel, n, h, cin,
                                                          cout):
-    """The card's fp32 route of kernels 1 and 5 (three TF32 passes over
-    split operands, fp32 sums) within 1e-5 of the layer's largest |ref| of
-    the JAX package's fp32 kernel: the limit ``chip_smoke.f32_check`` holds
-    the card's kernels to (fp32 products summed in another order).  One
-    TF32 pass errs beyond it, so the limit tells the two apart."""
+    """The card's fp32 route of kernels 1, 4 and 5 (three TF32 passes over
+    split operands, fp32 sums; kernel 4 through its affine and LeakyReLU)
+    within 1e-5 of the layer's largest |ref| of the JAX package's fp32
+    kernel: the limit ``chip_smoke.f32_check`` holds the card's kernels to
+    (fp32 products summed in another order).  One TF32 pass errs beyond
+    it, so the limit tells the two apart."""
     from tpugan_torch.ops.cuda_conv import conv421_plain
     from tpugan_torch.ops.kernel_common import f32_route
 
-    assert f32_route(cin) == "tf32"
+    if kernel == "conv":
+        assert cuda_conv.f32_path(cin, cout) in ("tf32", "tf32_narrow")
+    else:
+        assert f32_route(cin) == "tf32"
     rng = np.random.default_rng(cin + cout)
     x = rng.standard_normal((n, h, h, cin)).astype(np.float32)
     w = (0.05 * rng.standard_normal((4, 4, cin, cout))).astype(np.float32)
@@ -314,6 +323,17 @@ def test_three_tf32_passes_match_the_fp32_pallas_kernels(kernel, n, h, cin,
         # the statistics as chip_smoke.f32_stats_check holds them
         assert np.abs(mean.numpy() - rm).max() <= 1e-5 * scale
         assert np.abs(var.numpy() - rv).max() <= 1e-5 * (rv + rm * rm).max()
+    elif kernel == "conv":
+        a = (1 + 0.1 * rng.standard_normal(cout)).astype(np.float32)
+        b = (0.1 * rng.standard_normal(cout)).astype(np.float32)
+        with pltpu.force_tpu_interpret_mode():
+            ry = np.asarray(pallas_conv.conv_affine_act(
+                jnp.asarray(x), jnp.asarray(w), a, b, act="leaky_relu",
+                leak=0.2, out_dtype=jnp.float32))
+        y, y1 = (torch.nn.functional.leaky_relu(
+            v * torch.from_numpy(a) + torch.from_numpy(b), 0.2)
+            for v in three_pass(conv421_plain, xt, wt))
+        scale = np.abs(ry).max()
     else:
         a = (1 + 0.1 * rng.standard_normal(cout)).astype(np.float32)
         b = (0.1 * rng.standard_normal(cout)).astype(np.float32)
@@ -349,3 +369,17 @@ def test_f32_route_by_cin(cin, route):
     from tpugan_torch.ops.kernel_common import f32_route
 
     assert f32_route(cin) == route
+
+
+@pytest.mark.parametrize("cin,cout,path", [
+    (1, 32, "tf32_narrow"), (3, 64, "tf32_narrow"), (4, 64, "tf32_narrow"),
+    (16, 128, "tf32_narrow"), (3, 128, "tf32_narrow"), (32, 64, "tf32"),
+    (64, 128, "tf32"), (96, 40, "tf32"), (256, 512, "tf32"),
+    (17, 64, "ffma"), (48, 64, "ffma"), (100, 64, "ffma"),
+    (3, 129, "ffma")])
+def test_kernel4_f32_path_by_cin(cin, cout, path):
+    """Kernel 4's fp32 route rule: three TF32 passes on the wide conv tile
+    where Cin is a multiple of 32, on the narrow tile at Cin <= 16 with
+    Cout <= 128 (every D's RGB layer: Cin 1, 3, 4), the FFMA mainloop only
+    where neither tile takes the shape."""
+    assert cuda_conv.f32_path(cin, cout) == path

@@ -449,6 +449,19 @@ def test_library_tf32_plan_follows_the_rule(shape):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("shape", [s for s, _, _ in SPLITS_TF32]
+                         + [(n, 2 * h, 2 * w, 96, 40) for n, h, w in GRIDS])
+def test_conv_library_tf32_plan_follows_the_rule(shape):
+    """Kernel 4's TF32 route plans as kernel 5's (``plan_tf32``)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    n, h, w, cin, cout = shape
+    x = torch.empty((1, 1, 1, 1), device="cuda").expand(n, h, w, cin)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    assert cuda_conv.plan_tf32(x, cout) == plan_tf32(n, h, w, cin, cout, sms)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("shape", [s for s, _ in SPLITS]
                          + [(128, 64, 64, 3, 64), (3, 10, 6, 3, 7),
                             (1, 4, 2, 16, 3), (7, 200, 2, 8, 128),

@@ -18,10 +18,11 @@
 // block 0 of the cluster adds the others' in rank order through distributed
 // shared memory before its epilogue: the same bits on every run.
 //
-// fp32 operands (kF32) take the same tile at 32 channels a stage: x through
-// the same parity view in fp32, B from the weight split into its TF32 part
-// and the rest, K-major (split_weight_tf32), each stage's A split in
-// registers and multiplied in three TF32 passes (consume_f32).
+// fp32 operands (kF32: both kernels' wide TF32 route) take the same tile
+// at 32 channels a stage: x through the same parity view in fp32, B from
+// the weight split into its TF32 part and the rest, K-major
+// (split_weight_tf32), each stage's A split in registers and multiplied in
+// three TF32 passes (consume_f32).
 #pragma once
 
 #include "igemm_sm90.cuh"

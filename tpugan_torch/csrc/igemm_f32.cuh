@@ -1,10 +1,10 @@
 // Implicit-GEMM mainloop for fp32 operands with fp32 sums on the CUDA
-// cores (FFMA).  It serves the fp32 entry point of the k4/s2/p1 conv
-// (cuda_conv.cu, every shape) and the narrow fp32 path of the conv + BN
-// statistics (cuda_conv_stats.cu) and the ConvT (cuda_convt.cu): the
-// shapes their three-pass TF32 route on the Hopper mainloop
-// (igemm_sm90.cuh, consume_f32) does not take, Cin not a multiple of 32
-// (32 fp32 channels fill a stage's 128-byte row there).
+// cores (FFMA).  It serves the fp32 shapes that the three-pass TF32
+// routes on the Hopper mainloop (igemm_sm90.cuh, consume_f32) do not take:
+// Cin not a multiple of 32 (32 fp32 channels fill a stage's 128-byte row
+// there) in the conv + BN statistics (cuda_conv_stats.cu) and the ConvT
+// (cuda_convt.cu), and in the k4/s2/p1 conv (cuda_conv.cu) Cin above 16
+// as well (its narrow TF32 tile takes Cin <= 16).
 //
 // Replaces: the fp32 function of tpugan/ops/pallas_conv.py, and of
 // pallas_conv_stats.py and pallas_convt.py at those shapes, whose jnp.dot
@@ -14,10 +14,9 @@
 // What bounds it on an H100: FFMA on the CUDA cores, 67 TFLOP/s.  A
 // tensor-core path computes the same function to fp32's own accuracy (three
 // TF32 passes over operands split into big + small, as the two TF32 routes
-// do, at 165 TFLOP/s of fp32 products); this loop stays for the kernels and
-// shapes not yet moved there: kernel 4 (its wide layers bound by
-// operations) and the narrow shapes (the D's first layers at Cin 3 or 4,
-// the small test nets), which are small.
+// do, at 165 TFLOP/s of fp32 products); this loop stays for the shapes
+// not moved there (Cin not a multiple of 32: kernels 1 and 5 at the small
+// test nets' narrow layers, kernel 4 only above Cin 16), which are small.
 //
 // What the design does about it (simple; the wide shapes moved to the
 // tensor cores instead): a block of 256 threads computes a BM x BN tile of

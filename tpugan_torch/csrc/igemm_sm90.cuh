@@ -864,19 +864,27 @@ inline bool encode_weight_tf32(CUtensorMap* map, const float* ws,
 // memory size, done at the first launch and remembered: the attribute call
 // that allows `smem` bytes, and the blocks of kThreads the card holds at
 // once (`resident`, for a persistent grid; may be null).  The train step is
-// bound by the host's launches, so no launch repeats it.
+// bound by the host's launches, so no launch repeats it.  The attribute is
+// the kernel's, not the size's: it only grows (to the largest size a
+// launch asked for), so a remembered size stays allowed.
 inline cudaError_t kernel_setup(const void* kernel, int smem, int* resident) {
   struct Seen {
     const void* kernel;
     int dev, smem, resident;
   };
   constexpr int kMaxSeen = 64;
-  static Seen seen[kMaxSeen];
-  static int count = 0;
+  static Seen seen[kMaxSeen], allowed[kMaxSeen];  // allowed: by kernel
+  static int count = 0, kernels = 0;
   static std::mutex mu;
+  // a failed call is reported once, by the return: not again by the
+  // next launch's cudaGetLastError
+  auto fail = [](cudaError_t e) {
+    cudaGetLastError();
+    return e;
+  };
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return e;
+  if (e != cudaSuccess) return fail(e);
   std::lock_guard<std::mutex> lock(mu);
   for (int i = 0; i < count; ++i) {
     const Seen& s = seen[i];
@@ -885,17 +893,31 @@ inline cudaError_t kernel_setup(const void* kernel, int smem, int* resident) {
       return cudaSuccess;
     }
   }
+  Seen* most = nullptr;
+  for (int i = 0; i < kernels; ++i)
+    if (allowed[i].kernel == kernel && allowed[i].dev == dev)
+      most = &allowed[i];
+  // a size is remembered only where the kernel's attribute is
+  bool tracked = most != nullptr;
+  if (!most || most->smem < smem) {
+    e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return fail(e);
+    if (most) {
+      most->smem = smem;
+    } else if (kernels < kMaxSeen) {
+      allowed[kernels++] = Seen{kernel, dev, smem, 0};
+      tracked = true;
+    }
+  }
   int sms = 0, per_sm = 0;
-  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           smem);
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e == cudaSuccess)
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
                                                       kThreads, smem);
-  if (e != cudaSuccess) return e;
+  if (e != cudaSuccess) return fail(e);
   const Seen s{kernel, dev, smem, (per_sm > 1 ? per_sm : 1) * sms};
-  if (count < kMaxSeen) seen[count++] = s;
+  if (tracked && count < kMaxSeen) seen[count++] = s;
   if (resident) *resident = s.resident;
   return cudaSuccess;
 }
@@ -932,7 +954,9 @@ inline cudaError_t launch_ex(void (*kernel)(Params...), dim3 grid, int smem,
   }
   cfg.attrs = attr;
   cfg.numAttrs = na;
-  return cudaLaunchKernelEx(&cfg, kernel, static_cast<Params>(args)...);
+  e = cudaLaunchKernelEx(&cfg, kernel, static_cast<Params>(args)...);
+  if (e != cudaSuccess) cudaGetLastError();  // reported here, once
+  return e;
 }
 
 template <typename... Params, typename... Args>

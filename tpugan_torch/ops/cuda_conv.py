@@ -22,9 +22,16 @@ The kernel has two paths, chosen by shape in the library's launch plan
   tensors from PyTorch's allocator) take no copy.
 
 fp32 operands (``train.precision="fp32"``, as the Pallas kernel takes them)
-run ``tg_conv_affine_act_f32``: the same function with fp32 products on the
-FFMA mainloop of ``csrc/igemm_f32.cuh``, which takes x and w as they are
-(any Cin and Cout, no padding, no plan).
+compute the same function with fp32 products, by a route decided from Cin
+and Cout before the launch (``f32_path``): three TF32 passes over split
+operands on the tensor cores, ``tg_conv_affine_act_tf32`` (Cin a multiple
+of 32: kernel 5's fp32 conv tile, x copied only if off 16-byte alignment,
+the weight split once a call into a scratch of ``torch.empty``, planned by
+``plan_tf32``) or ``tg_conv_affine_act_tf32_narrow`` (Cin <= 16 with Cout
+<= 128, the RGB layers: x and w read as they are); elsewhere
+``tg_conv_affine_act_f32``, the FFMA mainloop of ``csrc/igemm_f32.cuh``,
+which takes x and w as they are (any Cin and Cout, no padding, no plan).
+A route's failed launch raises; nothing falls back to another.
 
 ``conv_affine_act`` takes a CPU tensor to the plain version below and a CUDA
 tensor to the kernel; it raises on a shape or dtype the kernel does not
@@ -42,13 +49,30 @@ import torch
 import torch.nn.functional as F
 
 from tpugan_torch.ops import _build
-from tpugan_torch.ops.kernel_common import (ACT_CODES, aligned,
+from tpugan_torch.ops.kernel_common import (ACT_CODES, TF32_CIN, aligned,
                                             check_operands, pad_dim,
                                             round_up)
 from tpugan_torch.ops.kernel_common import act as _act
 
 # Kernel launches made by ``conv_affine_act`` (CUDA tensors only).
 launches = 0
+
+# The narrow tiles' shapes (kNarrowMaxCin, kNarrowMaxCout of the source).
+NARROW_MAX_CIN, NARROW_MAX_COUT = 16, 128
+
+
+def f32_path(cin: int, cout: int) -> str:
+    """The route of kernel 4 on fp32 operands with ``cin`` input and
+    ``cout`` output channels, decided before the launch: "tf32" (three TF32
+    passes on the wide conv tile: Cin a multiple of 32), "tf32_narrow"
+    (three TF32 passes on the narrow tile: Cin <= 16 with Cout <= 128) or
+    "ffma" (the CUDA cores: the shapes neither tile takes).  A route's
+    failed launch raises; nothing falls back to another."""
+    if cin % TF32_CIN == 0:
+        return "tf32"
+    if cin <= NARROW_MAX_CIN and cout <= NARROW_MAX_COUT:
+        return "tf32_narrow"
+    return "ffma"
 
 
 def check_conv421(x, w) -> None:
@@ -118,14 +142,18 @@ def kernel_operands(x, w, path: str):
 def _lib():
     lib = _build.load("cuda_conv")
     if lib.tg_conv_affine_act.argtypes is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        for fn in (lib.tg_conv_affine_act, lib.tg_conv_affine_act_f32):
-            fn.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i,
-                           ctypes.c_float, i, p]
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        for fn in (lib.tg_conv_affine_act, lib.tg_conv_affine_act_f32,
+                   lib.tg_conv_affine_act_tf32_narrow):
+            fn.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, f, i, p]
             fn.restype = ctypes.c_int
-        lib.tg_conv_affine_act_plan.argtypes = [i, i, i, i, i, i,
-                                                ctypes.POINTER(i)]
-        lib.tg_conv_affine_act_plan.restype = None
+        lib.tg_conv_affine_act_tf32.argtypes = [p, p, p, p, p, p, i, i, i, i,
+                                                i, i, i, f, i, i, i, p]
+        lib.tg_conv_affine_act_tf32.restype = ctypes.c_int
+        for fn in (lib.tg_conv_affine_act_plan,
+                   lib.tg_conv_affine_act_tf32_plan):
+            fn.argtypes = [i, i, i, i, i, i, ctypes.POINTER(i)]
+            fn.restype = None
     return lib
 
 
@@ -138,6 +166,15 @@ def _plan(n: int, h: int, w: int, cin: int, cout: int,
     return ("narrow" if out[0] else "wide"), out[1], out[2]
 
 
+@functools.lru_cache(maxsize=None)
+def _plan_tf32(n: int, h: int, w: int, cin: int, cout: int,
+               device: int) -> tuple[int, int, int]:
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    out = (ctypes.c_int * 3)()
+    _lib().tg_conv_affine_act_tf32_plan(n, h, w, cin, cout, sms, out)
+    return out[0], out[1], out[2]
+
+
 def plan(x, cout: int) -> tuple[str, int, int]:
     """(path, tiles, splits) of a layer on the CUDA input ``x`` (as the
     caller gives it) with ``cout`` channels, as the library plans it for
@@ -146,15 +183,30 @@ def plan(x, cout: int) -> tuple[str, int, int]:
     return _plan(*x.shape, cout, x.device.index)
 
 
-def _launch(x, w, scale, shift, act, leak, out_dtype):
+def plan_tf32(x, cout: int) -> tuple[int, int, int]:
+    """(tiles, splits, tile width) of the "tf32" route on an fp32 CUDA
+    input ``x`` (Cin a multiple of 32), as the library plans it for x's
+    card (once a shape): kernel 5's fp32 plan
+    (``cuda_conv_stats.plan_tf32``), at most 2 blocks a tile, 64-wide
+    tiles where 128-wide ones would leave half the card idle."""
+    return _plan_tf32(*x.shape, cout, x.device.index)
+
+
+def _launch(x, w, scale, shift, act, leak, out_dtype, splits=None):
+    """The kernel on CUDA tensors.  ``splits`` is for measurement only: it
+    overrides the planned depth split of the "tf32" route with another of
+    1, 2 or 4 dividing its 16 Cin / 32 stages."""
     global launches
     cout = w.shape[-1]
-    if x.dtype == torch.float32:
-        # the FFMA mainloop takes the operands as they are
-        fn, ldb = _lib().tg_conv_affine_act_f32, cout
-        x, w = x.contiguous(), w.contiguous()
+    lib = _lib()
+    route = (f32_path(x.shape[3], cout) if x.dtype == torch.float32
+             else "bf16")
+    if route == "tf32":
+        x, w, ldb = aligned(x.contiguous()), w.contiguous(), cout
+    elif route in ("tf32_narrow", "ffma"):
+        # the narrow tile and the FFMA mainloop take the operands as they are
+        x, w, ldb = x.contiguous(), w.contiguous(), cout
     else:
-        fn = _lib().tg_conv_affine_act
         x, w, ldb = kernel_operands(x.contiguous(), w.contiguous(),
                                     plan(x, cout)[0])
     a = scale.to(torch.float32).contiguous()
@@ -162,12 +214,24 @@ def _launch(x, w, scale, shift, act, leak, out_dtype):
     n, h, wd, cin = x.shape
     y = torch.empty((n, h // 2, wd // 2, cout), dtype=out_dtype,
                     device=x.device)
+    common = (a.data_ptr(), b.data_ptr(), y.data_ptr(), n, h, wd, cin, cout,
+              ldb, ACT_CODES[act], float(leak),
+              int(out_dtype == torch.float32))
+    stream = _build.stream_ptr(x.device.index)
     with torch.cuda.device(x.device):
-        rc = fn(
-            x.data_ptr(), w.data_ptr(), a.data_ptr(), b.data_ptr(),
-            y.data_ptr(), n, h, wd, cin, cout, ldb, ACT_CODES[act],
-            float(leak), int(out_dtype == torch.float32),
-            _build.stream_ptr(x.device.index))
+        if route == "tf32":
+            _, planned, bn = plan_tf32(x, cout)
+            # scratch: the weight's TF32 part and rest, K-major
+            ws = torch.empty(32 * cin * cout, dtype=torch.float32,
+                             device=x.device)
+            rc = lib.tg_conv_affine_act_tf32(
+                x.data_ptr(), w.data_ptr(), ws.data_ptr(), *common,
+                splits or planned, bn, stream)
+        else:
+            fn = {"tf32_narrow": lib.tg_conv_affine_act_tf32_narrow,
+                  "ffma": lib.tg_conv_affine_act_f32,
+                  "bf16": lib.tg_conv_affine_act}[route]
+            rc = fn(x.data_ptr(), w.data_ptr(), *common, stream)
     _build.check(rc, "conv_affine_act")
     launches += 1
     return y
