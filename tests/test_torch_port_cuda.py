@@ -1289,3 +1289,44 @@ def test_one_rank_nccl_trainer_is_the_plain_trainer(cuda, tmp_path):
     finally:
         torch.backends.cudnn.deterministic = det
         multihost.shutdown()
+
+
+def test_resident_fused_step_counts_its_blocking_copies(cuda):
+    """Under the profiler a resident FusedProp step counts each blocking
+    copy of a host draw to the card (``utils/tracing.py``): the batch's
+    indices, the hflip bits and the latents, one each a step, each the
+    host's one wait for the device in the step."""
+    from tpugan_torch.models.registry import build_models
+    from tpugan_torch.train.state import create_train_state
+    from tpugan_torch.train.steps import build_train_step
+    from tpugan_torch.utils import tracing
+
+    k, n, nz = 2, 8, 16
+    cfg = get_preset("dcgan_celeba64_fast").override({
+        "model.ngf": 8, "model.ndf": 8, "model.nz": nz,
+        "data.batch_size": n, "train.steps_per_call": k,
+        "train.precision": "fp32", "train.fuse_stats": "off"})
+    assert cfg.train.fused_prop and cfg.data.device_resident
+    g, d = build_models(cfg.model, cfg.train.precision, device=cuda,
+                        generator=torch.Generator().manual_seed(0))
+    state = create_train_state(cfg, g, d)
+    step = build_train_step(cfg, g, d)
+    batch = {"dataset_images": torch.randint(
+        0, 256, (4 * n, 64, 64, 3), dtype=torch.uint8, device=cuda)}
+    state, _ = step(state, batch)
+    tracing.reset()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        step(state, batch)
+    flip = int(cfg.data.hflip)
+    c = tracing.counters()
+    assert c["h2d_blocking"] == k * (2 + flip)
+    assert c["h2d_blocking_bytes"] == k * n * (8 + flip + 4 * nz)
+    # each copy is a span of its own on the host's timeline, and the host
+    # waits for it (the profiler also marks a span on the device's)
+    names = [e.name() for e in prof.profiler.kineto_results.events()
+             if e.device_type().name != "CUDA"]
+    assert names.count(tracing.PREFIX + "h2d") == c["h2d_blocking"]
+    assert names.count("cudaStreamSynchronize") == c["h2d_blocking"]
+    tracing.reset()

@@ -43,7 +43,8 @@ def test_package_imports_without_jax():
             "tpugan_torch.parallel, tpugan_torch.parallel.multihost, "
             "tpugan_torch.parallel.mesh, tpugan_torch.parallel.collectives, "
             "tpugan_torch.parallel.fsdp, tpugan_torch.parallel.spatial, "
-            "tpugan_torch.parallel.inference, tpugan_torch.utils.debug; "
+            "tpugan_torch.parallel.inference, tpugan_torch.utils.debug, "
+            "tpugan_torch.utils.tracing; "
             "assert 'jax' not in [m.split('.')[0] for m in sys.modules "
             "if sys.modules[m] is not None]")
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,

@@ -15,18 +15,25 @@
 - ``rows`` (under a data mesh, ``parallel/multihost.local_rows``): every
   rank draws the global batch's indices and gathers and decodes only its
   own rows of them.
+- Tracing (``utils/tracing.py``): the producer times each batch (gather
+  or decode, stack, pin, the copy's enqueue) and hands the seconds over
+  beside it; each take is the span ``input.take`` and adds to the counters
+  ``input.batches``, ``input.produce_s`` and, where the queue was empty,
+  ``input.starved``.
 """
 
 from __future__ import annotations
 
 import queue
 import threading
+import time
 from typing import Dict, Iterator
 
 import numpy as np
 import torch
 
 from tpugan_torch.data import native
+from tpugan_torch.utils import tracing
 from tpugan_torch.utils.device import resolve_device
 
 PREFETCH = 2  # batches the producer keeps ready
@@ -101,10 +108,13 @@ class make_input_pipeline:
 
         def produce():
             try:
+                t = time.perf_counter()
                 for batch in self._stacked_batches():
                     if stop.is_set():
                         return
-                    put({k: self._to_device(v) for k, v in batch.items()})
+                    batch = {k: self._to_device(v) for k, v in batch.items()}
+                    put((batch, time.perf_counter() - t))
+                    t = time.perf_counter()
             except BaseException as e:  # propagate, don't hang the consumer
                 put(e)
 
@@ -112,10 +122,18 @@ class make_input_pipeline:
         t.start()
         try:
             while True:
-                item = q.get()
+                with tracing.span("input.take"):
+                    try:
+                        item, starved = q.get_nowait(), 0
+                    except queue.Empty:
+                        item, starved = q.get(), 1
                 if isinstance(item, BaseException):
                     raise RuntimeError(
                         "input pipeline producer failed") from item
-                yield item
+                batch, produce_s = item
+                tracing.count("input.batches")
+                tracing.count("input.produce_s", produce_s)
+                tracing.count("input.starved", starved)
+                yield batch
         finally:
             stop.set()

@@ -13,6 +13,7 @@ import numpy as np
 import torch
 
 from tpugan_torch.sample import threefry
+from tpugan_torch.utils import tracing
 
 
 def gradient_penalty(d_score_fn, real, fake, key=None, *,
@@ -30,12 +31,12 @@ def gradient_penalty(d_score_fn, real, fake, key=None, *,
     is this rank's.  Returns the penalty without the lambda factor.
     """
     n = real.shape[0]
-    if alpha is None:
-        alpha = threefry.uniform(key, ((rows[0] if rows else n), 1, 1, 1))
-    if rows is not None:
-        alpha = np.asarray(alpha).reshape(rows[0], 1, 1, 1)[rows[1]]
-    alpha = torch.as_tensor(alpha, device=real.device).float().reshape(
-        n, 1, 1, 1)
+    with tracing.span("step.draws"):
+        if alpha is None:
+            alpha = threefry.uniform(key, ((rows[0] if rows else n), 1, 1, 1))
+        if rows is not None:
+            alpha = np.asarray(alpha).reshape(rows[0], 1, 1, 1)[rows[1]]
+        alpha = tracing.h2d(alpha, real.device).float().reshape(n, 1, 1, 1)
     x_hat = (alpha * real.detach().float()
              + (1.0 - alpha) * fake.detach().float()).requires_grad_()
     score = d_score_fn(x_hat).float().sum()

@@ -86,6 +86,14 @@ packages see the same noise and data.  Batch entries ``z_d`` / ``z_g``,
 ``y_fake_d`` / ``y_fake_g`` and ``gp_alpha`` replace the draws (the JAX
 step's parity hooks).  The LR under a schedule is set before each update
 from the optimizer's own count (``train/state.py``).
+
+Spans (``utils/tracing.py``, on while a ``torch.profiler`` records): each
+step is ``step``, holding ``step.draws`` (the host's threefry splits and
+draws with their blocking copies to the device, each an ``h2d`` span and
+counted as ``h2d_blocking``; the penalty's under ``step.d_grads``),
+``step.real_batch`` (gather, uint8 to float, flip), ``step.grads``
+(FusedProp) or ``step.d_grads`` and ``step.g_grads``, and ``step.d_update``
+and ``step.g_update`` (the optimizers; ``step.ema`` under G's).
 """
 
 from __future__ import annotations
@@ -111,6 +119,7 @@ from tpugan_torch.parallel.multihost import local_rows
 from tpugan_torch.sample import threefry
 from tpugan_torch.train.state import (TrainState, ema_update, make_schedules,
                                       set_lr)
+from tpugan_torch.utils.tracing import h2d, span
 
 
 # ADA's r_t is an EMA over an image budget: alpha = 1 - bsz / window gives
@@ -343,37 +352,49 @@ def build_train_step(cfg: Config, g: nn.Module, d: nn.Module, mesh=None
                     ada_rt=rt)
 
     def d_update(state):
-        sync_grads(d)
-        set_lr(state.opt_d, sched_d)
-        state.opt_d.step()
-        if clip is not None:
-            # original WGAN critic weight clipping (Lipschitz constraint)
-            with torch.no_grad():
-                for p in d.parameters():
-                    p.clamp_(-clip, clip)
+        with span("step.d_update"):
+            sync_grads(d)
+            set_lr(state.opt_d, sched_d)
+            state.opt_d.step()
+            if clip is not None:
+                # original WGAN critic weight clipping (Lipschitz constraint)
+                with torch.no_grad():
+                    for p in d.parameters():
+                        p.clamp_(-clip, clip)
 
     def g_update(state):
-        sync_grads(g)
-        set_lr(state.opt_g, sched_g)
-        state.opt_g.step()
-        if state.g_ema is not None:
-            ema_update(state.g_ema, g, ema_decay)
+        with span("step.g_update"):
+            sync_grads(g)
+            set_lr(state.opt_g, sched_g)
+            state.opt_g.step()
+            if state.g_ema is not None:
+                with span("step.ema"):
+                    ema_update(state.g_ema, g, ema_decay)
 
     def step(state: TrainState, batch: Dict) -> Tuple[TrainState, Dict]:
-        with convs.using_impl("xla"), batch_ctx(mesh):
+        with span("step"), convs.using_impl("xla"), batch_ctx(mesh):
             return _step(state, batch)
 
-    def _real_batch(state, batch, k_data, k_flip, rows):
+    def _real_rows(state, batch, k_data, k_flip, bsz, rows, dev):
+        """The host's draws for the real batch, on the device: the
+        resident batch's indices and the hflip bits (None where there are
+        none)."""
+        idx = flip = None
         if "dataset_images" in batch:
-            images = batch["dataset_images"]
-            n_set = images.shape[0]
+            n_set = batch["dataset_images"].shape[0]
             if cfg.data.sampling == "epoch":
                 idx = epoch_indices(root, state.step, bsz_cfg, n_set)
             else:  # uniform with replacement
                 idx = threefry.randint(k_data, 0, n_set, (bsz_cfg,))
-            idx = torch.as_tensor(take(idx, rows).astype(np.int64),
-                                  device=images.device)
-            x_real = images.index_select(0, idx)
+            idx = h2d(take(idx, rows).astype(np.int64), dev)
+        if hflip:
+            flip = h2d(take(
+                threefry.uniform(k_flip, (bsz, 1, 1, 1)) < 0.5, rows), dev)
+        return idx, flip
+
+    def _real_batch(batch, idx, flip):
+        if idx is not None:
+            x_real = batch["dataset_images"].index_select(0, idx)
             lab = batch.get("dataset_labels")
             y_real = None if lab is None else lab.index_select(0, idx)
         else:
@@ -385,10 +406,7 @@ def build_train_step(cfg: Config, g: nn.Module, d: nn.Module, mesh=None
             y_real = y_real.to(dev).long()
         if x_real.dtype == torch.uint8:
             x_real = x_real.float() / 127.5 - 1.0
-        if hflip:
-            bsz = x_real.shape[0] * n_data
-            flip = torch.from_numpy(take(
-                threefry.uniform(k_flip, (bsz, 1, 1, 1)) < 0.5, rows)).to(dev)
+        if flip is not None:
             x_real = torch.where(flip, x_real.flip(2), x_real)
         return x_real, (y_real if conditional else None)
 
@@ -396,26 +414,14 @@ def build_train_step(cfg: Config, g: nn.Module, d: nn.Module, mesh=None
         # the trainer's sample grids put G in eval mode between steps
         g.train()
         d.train()
-        if policy:
-            (rng, k_zd, k_zg, k_gp, k_yd, k_yg, k_flip, k_data, k_aug_d,
-             k_aug_g) = threefry.split(state.rng, 10)
-        else:
-            (rng, k_zd, k_zg, k_gp, k_yd, k_yg, k_flip,
-             k_data) = threefry.split(state.rng, 8)
-            k_aug_d = k_aug_g = None
-        # the global batch's size, and this rank's rows of it
-        bsz = (bsz_cfg if "dataset_images" in batch
-               else batch["image"].shape[-4] * n_data)
-        rows = (None if n_data == 1 else
-                local_rows(bsz, n_data, data_index, accum))
-        x_real, y_real = _real_batch(state, batch, k_data, k_flip, rows)
-        dev = x_real.device
+        resident = "dataset_images" in batch
+        dev = batch["dataset_images" if resident else "image"].device
 
         def latents(name, key):
             z = batch.get(name)
             if z is None:
                 z = threefry.normal(key, (bsz, nz))
-            return torch.as_tensor(take(z, rows), device=dev).float()
+            return h2d(take(z, rows), dev).float()
 
         def fake_labels(name, key):
             if not conditional:
@@ -423,12 +429,31 @@ def build_train_step(cfg: Config, g: nn.Module, d: nn.Module, mesh=None
             y = batch.get(name)
             if y is None:
                 y = threefry.randint(key, 0, n_classes, (bsz,))
-            return torch.as_tensor(take(y, rows), device=dev).long()
+            return h2d(take(y, rows), dev).long()
 
-        z_d = latents("z_d", k_zd)
-        y_fake_d = fake_labels("y_fake_d", k_yd)
+        with span("step.draws"):
+            if policy:
+                (rng, k_zd, k_zg, k_gp, k_yd, k_yg, k_flip, k_data, k_aug_d,
+                 k_aug_g) = threefry.split(state.rng, 10)
+            else:
+                (rng, k_zd, k_zg, k_gp, k_yd, k_yg, k_flip,
+                 k_data) = threefry.split(state.rng, 8)
+                k_aug_d = k_aug_g = None
+            # the global batch's size, and this rank's rows of it
+            bsz = bsz_cfg if resident else batch["image"].shape[-4] * n_data
+            rows = (None if n_data == 1 else
+                    local_rows(bsz, n_data, data_index, accum))
+            idx, flip = _real_rows(state, batch, k_data, k_flip, bsz, rows,
+                                   dev)
+            z_d = latents("z_d", k_zd)
+            y_fake_d = fake_labels("y_fake_d", k_yd)
+        with span("step.real_batch"):
+            x_real, y_real = _real_batch(batch, idx, flip)
         if cfg.train.fused_prop:
-            metrics = fused(state, x_real, y_real, z_d, y_fake_d, k_aug_d)
+            with span("step.grads"):
+                metrics = fused(state, x_real, y_real, z_d, y_fake_d, k_aug_d)
+            d_update(state)
+            g_update(state)
         else:
             metrics = alternating(state, batch, x_real, y_real, z_d,
                                   y_fake_d, k_gp, k_aug_d, k_aug_g,
@@ -477,11 +502,8 @@ def build_train_step(cfg: Config, g: nn.Module, d: nn.Module, mesh=None
         }
         if ada_on:
             metrics["rt_batch"] = rt_batch(real_logits)
-        metrics = ada_update(state, global_metrics(metrics),
-                             x_real.shape[0] * n_data)
-        d_update(state)
-        g_update(state)
-        return metrics
+        return ada_update(state, global_metrics(metrics),
+                          x_real.shape[0] * n_data)
 
     def chunks(t):
         return [None] * accum if t is None else list(t.chunk(accum))
@@ -491,9 +513,28 @@ def build_train_step(cfg: Config, g: nn.Module, d: nn.Module, mesh=None
 
     def alternating(state, batch, x_real, y_real, z_d, y_fake_d, k_gp,
                     k_aug_d, k_aug_g, g_inputs):
-        dev = x_real.device
         ada_p = state.ada_p  # both updates augment at the step's incoming p
-        # --- D update: one microbatch after another, gradients summed ---
+        with span("step.d_grads"):
+            metrics = d_grads(state, batch, x_real, y_real, z_d, y_fake_d,
+                              k_gp, k_aug_d, ada_p)
+        d_update(state)
+        # --- G update (every n_critic-th call) ---
+        if n_critic == 1 or state.step % n_critic == n_critic - 1:
+            with span("step.draws"):
+                z_g, y_fake_g = g_inputs()
+            with span("step.g_grads"):
+                loss_g = g_grads(state, z_g, y_fake_g, k_aug_g, ada_p)
+            g_update(state)
+            metrics["loss_g"] = global_metrics({"loss_g": loss_g})["loss_g"]
+        else:
+            metrics["loss_g"] = torch.zeros((), device=x_real.device)
+        return metrics
+
+    def d_grads(state, batch, x_real, y_real, z_d, y_fake_d, k_gp, k_aug_d,
+                ada_p):
+        """D's gradients, one microbatch after another, summed; returns
+        the metrics of the D update."""
+        dev = x_real.device
         gp_alpha = batch.get("gp_alpha")
         if gp_alpha is not None:
             gp_alpha = torch.as_tensor(gp_alpha).reshape(-1)
@@ -536,37 +577,31 @@ def build_train_step(cfg: Config, g: nn.Module, d: nn.Module, mesh=None
         if accum > 1:
             for p in d.parameters():
                 p.grad.div_(accum)
-        metrics = ada_update(state, global_metrics(
+        return ada_update(state, global_metrics(
             {k: mean([m[k] for m in ms]) for k in ms[0]}),
             x_real.shape[0] * n_data)
-        d_update(state)
 
-        # --- G update (every n_critic-th call) ---
-        if n_critic == 1 or state.step % n_critic == n_critic - 1:
-            z_g, y_fake_g = g_inputs()
-            state.opt_g.zero_grad(set_to_none=True)
-            d.requires_grad_(False)
-            losses = []
-            try:
-                for z, yf, ka in zip(chunks(z_g), chunks(y_fake_g),
-                                     aug_keys(k_aug_g)):
-                    fake = gen(z, yf)
-                    if policy:  # differentiable: G's gradient flows through
-                        fake = aug(fake, ka, ada_p)
-                    loss_g = g_loss_fn(kind, disc(fake, yf))
-                    share(loss_g).backward()
-                    losses.append(loss_g.detach())
-            finally:
-                d.requires_grad_(True)
-            if accum > 1:
-                for p in g.parameters():
-                    p.grad.div_(accum)
-            g_update(state)
-            metrics["loss_g"] = global_metrics(
-                {"loss_g": mean(losses)})["loss_g"]
-        else:
-            metrics["loss_g"] = torch.zeros((), device=dev)
-        return metrics
+    def g_grads(state, z_g, y_fake_g, k_aug_g, ada_p):
+        """G's gradients through the frozen D, one microbatch after
+        another, summed; returns G's loss, the microbatches' mean."""
+        state.opt_g.zero_grad(set_to_none=True)
+        d.requires_grad_(False)
+        losses = []
+        try:
+            for z, yf, ka in zip(chunks(z_g), chunks(y_fake_g),
+                                 aug_keys(k_aug_g)):
+                fake = gen(z, yf)
+                if policy:  # differentiable: G's gradient flows through
+                    fake = aug(fake, ka, ada_p)
+                loss_g = g_loss_fn(kind, disc(fake, yf))
+                share(loss_g).backward()
+                losses.append(loss_g.detach())
+        finally:
+            d.requires_grad_(True)
+        if accum > 1:
+            for p in g.parameters():
+                p.grad.div_(accum)
+        return mean(losses)
 
     k = cfg.train.steps_per_call
     if k <= 1:

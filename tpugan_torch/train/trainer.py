@@ -23,7 +23,9 @@ once, each step gathers its batch there), and:
   returns (a second signal force-quits); the handlers are installed on the
   main thread only, and the old ones are always put back;
 - under ``profile_steps`` N, traces calls 2 to N + 1 with ``torch.profiler``
-  into ``out_dir/prof``;
+  into ``out_dir/prof/steps_<step>.json.gz``, the program's spans among its
+  events, and writes the program's counters of those calls
+  (``utils/tracing.py``) beside it, ``steps_<step>.counters.json``;
 - every ``eval_every`` steps and at the last step, scores the sampling
   generator with ``eval/evaluate.py`` (FID, KID, IS; logged under the
   ``eval`` prefix, its time kept out of ``images_per_sec``) against the
@@ -105,6 +107,7 @@ from tpugan_torch.sample.sampler import Sampler
 from tpugan_torch.train.state import (TrainState, create_train_state,
                                       sync_ema_buffers)
 from tpugan_torch.train.steps import build_train_step
+from tpugan_torch.utils import tracing
 from tpugan_torch.utils.device import resolve_device
 from tpugan_torch.utils.images import make_grid, save_png, to_uint8
 from tpugan_torch.utils.logging import MetricsLogger
@@ -428,6 +431,8 @@ class Trainer:
         prof.stop()
         os.makedirs(os.path.dirname(path), exist_ok=True)
         prof.export_chrome_trace(path)
+        with open(path.replace(".json.gz", ".counters.json"), "w") as f:
+            json.dump(tracing.counters(), f, indent=1, sort_keys=True)
 
     def train(self, total_steps: Optional[int] = None) -> Dict[str, float]:
         """Train up to step ``total_steps`` (default ``train.total_steps``);
@@ -500,6 +505,7 @@ class Trainer:
                         if self.device.type == "cuda":
                             acts.append(torch.profiler.ProfilerActivity.CUDA)
                         prof = torch.profiler.profile(activities=acts)
+                        tracing.reset()
                         prof.start()
                         prof_path = os.path.join(
                             out_dir, "prof", f"steps_{i + 1:07d}.json.gz")

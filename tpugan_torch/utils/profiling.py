@@ -14,8 +14,6 @@
   ``kernels="xla"`` with ``fuse_stats="off"``.
 - ``sync``, ``timeit``: wall clock around work that ends in
   ``torch.cuda.synchronize()``.
-- ``device_memory_stats()``: ``torch.cuda.memory_stats`` of every card.
-- ``Throughput``: the images/sec/chip meter.
 """
 
 from __future__ import annotations
@@ -23,7 +21,7 @@ from __future__ import annotations
 import contextlib
 import os
 import time
-from typing import Any, Dict
+from typing import Dict
 
 import numpy as np
 import torch
@@ -104,33 +102,3 @@ def timeit(fn, *args, iters: int = 10, warmup: int = 2) -> float:
         sync()
         times.append(time.perf_counter() - t0)
     return float(np.median(times))
-
-
-def device_memory_stats() -> Dict[str, Any]:
-    """``torch.cuda.memory_stats`` by card (``cuda:<i>``); empty without
-    one."""
-    if not torch.cuda.is_available():
-        return {}
-    return {f"cuda:{i}": torch.cuda.memory_stats(i)
-            for i in range(torch.cuda.device_count())}
-
-
-class Throughput:
-    """Images/sec/chip meter (the north-star metric) between mark() calls."""
-
-    def __init__(self, n_chips: int = 1):
-        self.n_chips = max(n_chips, 1)
-        self.reset()
-
-    def reset(self) -> None:
-        self._t0 = time.perf_counter()
-        self._images = 0
-
-    def add(self, n_images: int) -> None:
-        self._images += n_images
-
-    def mark(self) -> float:
-        dt = time.perf_counter() - self._t0
-        rate = self._images / max(dt, 1e-9) / self.n_chips
-        self.reset()
-        return rate
