@@ -22,7 +22,10 @@ Phases, each of which fails the run (no exception is caught):
    shapes: the conditional D's first layer (Cin 4, the narrow path) and the
    spectrally normalized 32 px D's three layers on W / sigma; kernel 5 also
    at batches 256 and 64 (the flagship's, a ``grad_accum=2`` microbatch's),
-   v2 also at a Trainer grid's 64 images;
+   v2 also at a Trainer grid's 64 images; and the threefry kernel's three
+   draws of a batch-1024 flagship step (indices, hflip bits, z_d) against
+   ``sample/threefry.py``: randint and bernoulli bit for bit, normal within
+   3 ulps, timed beside the host's draw with its copy to the card;
 3. drive the main path at full width (``dcgan_celeba64``: nz=100, ngf=64,
    random weights from a seeded ``torch.Generator``, BN running stats from a
    few train-mode forwards): ``Sampler.sample(256)`` under
@@ -66,7 +69,8 @@ Phases, each of which fails the run (no exception is caught):
    (FusedProp, 50 steps a call, the synthetic dataset of 20 x 256 images
    resident on the card, batch 256, ``fuse_stats="on"``) for two calls,
    a checkpoint after each and the second profiled into ``out_dir/prof``:
-   exactly 6 conv + BN-stats launches a step (3 BN blocks x 2 D forwards),
+   exactly 6 conv + BN-stats launches a step (3 BN blocks x 2 D forwards)
+   and 3 threefry launches (the indices, the hflip bits and z_d),
    the host pipeline never built, finite losses; ms per step and images/s
    by CUDA events, the device's busy share and kernels a step under the
    profiler; one FusedProp step's D against one alternating step's from one
@@ -1623,9 +1627,9 @@ def against(other: str) -> int:
 # ---------------------------------------------------------------------------
 
 KERNEL_MODS = ("cuda_convt", "cuda_gen", "cuda_gen2", "cuda_conv",
-               "cuda_conv_stats")
+               "cuda_conv_stats", "cuda_threefry")
 COUNT_KEYS = ("convt_affine_act", "v1", "v2", "conv_affine_act",
-              "conv_stats")
+              "conv_stats", "threefry")
 
 
 def _rank_setup():
@@ -2309,7 +2313,7 @@ def examples_phase(zero_counts, add_counts) -> None:
 
     import chip_smoke as this  # its functions pickle by this name
     from tpugan_torch.ops import (cuda_conv, cuda_conv_stats, cuda_convt,
-                                  cuda_gen, cuda_gen2)
+                                  cuda_gen, cuda_gen2, cuda_threefry)
     from tpugan_torch.parallel import multihost
 
     work = RUNS / "examples"
@@ -2318,7 +2322,7 @@ def examples_phase(zero_counts, add_counts) -> None:
     # both on the one card, asked for explicitly
     shared = [] if cards >= 2 else ["--backend", "gloo"]
     mods = dict(zip(COUNT_KEYS, (cuda_convt, cuda_gen, cuda_gen2, cuda_conv,
-                                 cuda_conv_stats)))
+                                 cuda_conv_stats, cuda_threefry)))
     rank_counts = []
     spawn = multihost.spawn
 
@@ -2456,7 +2460,8 @@ def main() -> int:
     from tpugan_torch.data.datasets import load_dataset
     from tpugan_torch.models.registry import build_discriminator
     from tpugan_torch.ops import (_build, convs, cuda_conv, cuda_conv_stats,
-                                  cuda_convt, cuda_gen, cuda_gen2)
+                                  cuda_convt, cuda_gen, cuda_gen2,
+                                  cuda_threefry)
     from tpugan_torch.ops.fused import bn_affine
     from tpugan_torch.sample import threefry
     from tpugan_torch.sample.sampler import Sampler, seeded_noise
@@ -2465,7 +2470,8 @@ def main() -> int:
     from tpugan_torch.train import trainer as trainer_mod
     from tpugan_torch.train.trainer import NonFiniteLossError, Trainer
 
-    kernel_mods = (cuda_convt, cuda_gen, cuda_gen2, cuda_conv, cuda_conv_stats)
+    kernel_mods = (cuda_convt, cuda_gen, cuda_gen2, cuda_conv, cuda_conv_stats,
+                   cuda_threefry)
 
     def zero_counts():
         for mod in kernel_mods:
@@ -2484,7 +2490,8 @@ def main() -> int:
             "convt_affine_act": cuda_convt.launches,
             "v1": cuda_gen.launches, "v2": cuda_gen2.launches,
             "conv_affine_act": cuda_conv.launches,
-            "conv_stats": cuda_conv_stats.launches})
+            "conv_stats": cuda_conv_stats.launches,
+            "threefry": cuda_threefry.launches})
 
     # the plain versions are the references: full fp32 matmuls and convs
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2876,6 +2883,73 @@ def main() -> int:
                 f"conv_bn_stats backward d{label}: max err {e}")
     del d0, xk, wk, xr, wr, gx, gw, gxr, gwr
 
+    # -- 2c. the train step's draws: the threefry kernel ------------------
+    # a flagship step's three draws (batch 1024, nz 100: the resident
+    # batch's indices, the hflip bits, z_d), one launch each, against
+    # threefry.py's host draw: randint and bernoulli bit for bit, normal
+    # within 3 ulps (the kernel rounds log1p once from double, numpy's
+    # float32 log1p is an ulp off that on some inputs, and the erf_inv
+    # polynomial carries an ulp of log1p to at most 3); ``plain_ms`` is the
+    # host draw with its copy to the card, as the step made it before, on
+    # the host's clock; the bound is the bytes written alone
+    def ordered(v):
+        i = v.view(np.int32).astype(np.int64)
+        return np.where(i < 0, -(i & 0x7FFFFFFF), i)
+
+    k_step = threefry.split(threefry.prng_key(3_180_000_007), 8)
+    nb = 4 * BATCH
+    draws = (
+        ("randint", (nb,), k_step[7],
+         lambda k, sh: cuda_threefry.randint(k, 0, 202599, sh, dev),
+         lambda k, sh: threefry.randint(k, 0, 202599, sh).astype(np.int64)),
+        ("bernoulli", (nb, 1, 1, 1), k_step[6],
+         lambda k, sh: cuda_threefry.bernoulli(k, 0.5, sh, dev),
+         lambda k, sh: threefry.bernoulli(k, 0.5, sh)),
+        ("normal", (nb, 100), k_step[1],
+         lambda k, sh: cuda_threefry.normal(k, sh, dev),
+         lambda k, sh: threefry.normal(k, sh)))
+    draw_cases = []
+    for label, shape, k, card_draw, host_draw in draws:
+        got = card_draw(k, shape)
+        torch.cuda.synchronize()
+        got, want = got.cpu().numpy(), host_draw(k, shape)
+        require(got.dtype == want.dtype and got.shape == want.shape,
+                f"threefry {label}: {got.dtype} {got.shape} against "
+                f"{want.dtype} {want.shape}")
+        if label == "normal":
+            off = np.abs(ordered(got) - ordered(want))
+            err, apart = int(off.max()), int((off > 0).sum())
+            require(err <= 3, f"threefry normal: {err} ulps from threefry.py")
+        else:
+            err = apart = int((got != want).sum())
+            require(err == 0, f"threefry {label}: {err} values differ")
+        byt = got.nbytes
+        bms, by = bound_ms(0.0, byt)
+        c = dict(case=f"{label} {'x'.join(map(str, shape))}",
+                 **timed(lambda k=k, sh=shape: card_draw(k, sh), iters=20),
+                 plain_ms=time_host(lambda k=k, sh=shape: torch.from_numpy(
+                     host_draw(k, sh)).to(dev), 10),
+                 library_ms=None, library_device_ms=None, bound_ms=bms,
+                 bound_by=by, flops=0, bytes=byt, max_abs_err=err,
+                 values_apart=apart)
+        log(f"[kernel] threefry {json.dumps(c)}")
+        draw_cases.append(c)
+    report["threefry"] = dict(
+        name="cuda_threefry draws", route="cuda",
+        source="tpugan_torch/csrc/cuda_threefry.cu",
+        replaces="tpugan/train/steps.py:462 (jax.random in the jitted step)",
+        max_abs_err=max(c["max_abs_err"] for c in draw_cases),
+        **{k: sum(c[k] for c in draw_cases)
+           for k in ("ms", "device_ms", "plain_ms", "bound_ms")},
+        bound_by="bytes", library_ms=None, library_device_ms=None,
+        cases=draw_cases)
+    tf = report["threefry"]
+    log(f"[kernel] threefry: a flagship step's three draws {tf['ms']:.4f} "
+        f"ms eagerly, {tf['device_ms']:.4f} ms on the device, against "
+        f"{tf['plain_ms']:.4f} ms drawn on the host and copied (normal: "
+        f"{draw_cases[2]['max_abs_err']} ulps from threefry.py at most, "
+        f"{draw_cases[2]['values_apart']} of {nb * 100} values apart)")
+
     # -- 3. main path (serving), with the launch counters from zero ---------
     zero_counts()
     t0 = time.time()
@@ -3058,13 +3132,6 @@ def main() -> int:
                                      train_data, step_metrics))
     profile_steps(t_on, 5, train_data, step_metrics,
                   "dcgan_celeba64 fuse_stats=on")
-    k_draw = threefry.split(t_on.state.rng, 8)[1]
-    t0 = time.perf_counter()
-    for _ in range(10):
-        threefry.normal(k_draw, (TRAIN_BATCH, tcfg.model.nz))
-    log(f"[profile] host: one {TRAIN_BATCH}x{tcfg.model.nz} threefry normal "
-        f"draw in numpy {(time.perf_counter() - t0) * 100:.3f} ms "
-        f"(two a step)")
     last = t_on.train(t_on.state.step + 1)  # a logged step and a grid
     for m in [m_on, m_off, last, *warm]:
         require(all(np.isfinite(v) for v in m.values()),
@@ -3339,6 +3406,10 @@ def main() -> int:
     require(counts["conv_stats"] == 6 * ftr.state.step,
             f"{counts['conv_stats']} conv_stats launches in "
             f"{ftr.state.step} FusedProp steps, not 6 a step")
+    # the resident batch's indices, its hflip bits and z_d, on the card
+    require(counts["threefry"] == 3 * ftr.state.step,
+            f"{counts['threefry']} threefry launches in {ftr.state.step} "
+            f"FusedProp steps, not 3 a step")
     require(counts["v2"] > 0, "no sample grid on the flagship's path")
     require(all(np.isfinite(v) for v in fast_logged.values()),
             f"non-finite logged metrics {fast_logged}")
@@ -3932,7 +4003,7 @@ def main() -> int:
              "cases")
     kernels = [{k: report[key][k] for k in order}
                for key in ("convt_affine_act", "v1", "v2", "conv_affine_act",
-                           "conv_stats")]
+                           "conv_stats", "threefry")]
     for k in kernels:  # the headers each source builds with
         k["includes"] = includes(k["source"].rsplit("/", 1)[1])
     log(f"[done] total {time.time() - t_start:.1f}s")

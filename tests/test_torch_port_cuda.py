@@ -1292,10 +1292,12 @@ def test_one_rank_nccl_trainer_is_the_plain_trainer(cuda, tmp_path):
 
 
 def test_resident_fused_step_counts_its_blocking_copies(cuda):
-    """Under the profiler a resident FusedProp step counts each blocking
-    copy of a host draw to the card (``utils/tracing.py``): the batch's
-    indices, the hflip bits and the latents, one each a step, each the
-    host's one wait for the device in the step."""
+    """Under the profiler a resident FusedProp step draws the batch's
+    indices, the hflip bits and the latents on the card, one launch each
+    a step, counted as ``device_draws``, with no blocking copy and no wait
+    for the device (``utils/tracing.py``); fed the latents by the ``z_d``
+    hook, it counts that host array's blocking copy, one a step, each a
+    span of its own and the host's one wait for the device in the step."""
     from tpugan_torch.models.registry import build_models
     from tpugan_torch.train.state import create_train_state
     from tpugan_torch.train.steps import build_train_step
@@ -1314,19 +1316,26 @@ def test_resident_fused_step_counts_its_blocking_copies(cuda):
     batch = {"dataset_images": torch.randint(
         0, 256, (4 * n, 64, 64, 3), dtype=torch.uint8, device=cuda)}
     state, _ = step(state, batch)
-    tracing.reset()
+    flip = int(cfg.data.hflip)
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        step(state, batch)
-    flip = int(cfg.data.hflip)
-    c = tracing.counters()
-    assert c["h2d_blocking"] == k * (2 + flip)
-    assert c["h2d_blocking_bytes"] == k * n * (8 + flip + 4 * nz)
-    # each copy is a span of its own on the host's timeline, and the host
-    # waits for it (the profiler also marks a span on the device's)
-    names = [e.name() for e in prof.profiler.kineto_results.events()
-             if e.device_type().name != "CUDA"]
-    assert names.count(tracing.PREFIX + "h2d") == c["h2d_blocking"]
-    assert names.count("cudaStreamSynchronize") == c["h2d_blocking"]
+    hook = np.zeros((n, nz), np.float32)
+    for fed in (False, True):
+        tracing.reset()
+        with torch.profiler.profile(activities=acts) as prof:
+            step(state, dict(batch, z_d=hook) if fed else batch)
+        c = tracing.counters()
+        assert c["device_draws"] == k * (1 + flip + (not fed))
+        assert c["device_draws_bytes"] == k * n * (
+            8 + flip + (0 if fed else 4 * nz))
+        copies = k if fed else 0
+        assert c.get("h2d_blocking", 0) == copies
+        assert c.get("h2d_blocking_bytes", 0) == copies * n * 4 * nz
+        # each copy is a span of its own on the host's timeline, and the
+        # host waits for it (the profiler also marks a span on the
+        # device's); a draw on the card makes neither
+        names = [e.name() for e in prof.profiler.kineto_results.events()
+                 if e.device_type().name != "CUDA"]
+        assert names.count(tracing.PREFIX + "h2d") == copies
+        assert names.count("cudaStreamSynchronize") == copies
     tracing.reset()

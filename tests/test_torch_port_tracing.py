@@ -1,11 +1,13 @@
 """The port's spans and counters (``tpugan_torch/utils/tracing.py``): off
 without a profiler (one shared null context, nothing counted); under a
-CPU ``torch.profiler`` a FusedProp and an alternating step record their
-spans once a step, nested as ``train/steps.py`` says; a traced step
-computes the untraced step's bits; a copy of a host array to a device is
-a span and counted, one to the CPU neither; the input pipeline counts its
-takes and its producer's time; the Trainer's ``profile_steps`` window
-writes the counters beside its trace.  This file imports no JAX."""
+CPU ``torch.profiler`` a FusedProp, an alternating and a conditional step
+record their spans once a step, nested as ``train/steps.py`` says; a
+traced step computes the untraced step's bits; on the CPU a step draws
+threefry.py's bits without the threefry kernel or its library, and counts
+no draw on a card; a copy of a host array to a device is a span and
+counted, one to the CPU neither; the input pipeline counts its takes and
+its producer's time; the Trainer's ``profile_steps`` window writes the
+counters beside its trace.  This file imports no JAX."""
 
 import json
 
@@ -16,6 +18,8 @@ import torch
 from tpugan_torch.configs import get_preset
 from tpugan_torch.data.pipeline import make_input_pipeline
 from tpugan_torch.models.registry import build_models
+from tpugan_torch.ops import _build, cuda_threefry
+from tpugan_torch.sample import threefry
 from tpugan_torch.train.state import create_train_state
 from tpugan_torch.train.steps import build_train_step
 from tpugan_torch.train.trainer import Trainer
@@ -28,6 +32,7 @@ STEPS = {
     "fused": ("dcgan_celeba64_fast", {"train.steps_per_call": 2},
               ["step.grads"]),
     "alternating": ("dcgan_celeba64", {}, ["step.d_grads", "step.g_grads"]),
+    "conditional": ("cdcgan_celeba64", {}, ["step.d_grads", "step.g_grads"]),
 }
 UPDATES = ["step.d_update", "step.g_update", "step.ema"]
 
@@ -41,10 +46,15 @@ def _setup(preset, over):
     s, c, n = cfg.model.image_size, cfg.model.channels, 4
     images = torch.from_numpy(rng.integers(0, 256, (n * 4, s, s, c),
                                            dtype=np.uint8))
+    labels = torch.from_numpy(rng.integers(0, max(cfg.model.n_classes, 1),
+                                           n * 4))
     if cfg.data.device_resident:
         batch = {"dataset_images": images}
     else:
         batch = {"image": images[:n]}
+    if cfg.model.arch == "cdcgan":
+        batch["dataset_labels" if cfg.data.device_resident
+              else "label"] = labels[:len(next(iter(batch.values())))]
     return cfg, state, build_train_step(cfg, g, d), batch
 
 
@@ -96,8 +106,65 @@ def test_traced_step_records_its_spans_nested(kind):
     assert parents == {("step", None), ("step.ema", "step.g_update")} | {
         (n, "step") for n in ["step.draws", "step.real_batch",
                               "step.d_update", "step.g_update"] + grads}
-    # on the CPU nothing is copied to a card
+    # on the CPU nothing is copied to a card, nor drawn on one
     assert "h2d_blocking" not in tracing.counters()
+    assert "device_draws" not in tracing.counters()
+
+
+def _host_draws(cfg, rng, batch):
+    """What a step of ``cfg`` from key ``rng`` draws, in order, as the host
+    drew it for the device: (the next key, [(name, array)])."""
+    (rng, k_zd, k_zg, _, k_yd, k_yg, k_flip,
+     k_data) = threefry.split(rng, 8)
+    bsz, nz, c = cfg.data.batch_size, cfg.model.nz, cfg.model.n_classes
+    out = []
+    if "dataset_images" in batch:
+        n_set = batch["dataset_images"].shape[0]
+        out.append(("randint", threefry.randint(k_data, 0, n_set, (bsz,))
+                    .astype(np.int64)))
+    if cfg.data.hflip:
+        out.append(("bernoulli",
+                    threefry.uniform(k_flip, (bsz, 1, 1, 1)) < 0.5))
+    conditional = cfg.model.arch == "cdcgan"
+    for k_z, k_y in ((k_zd, k_yd), (k_zg, k_yg))[:1 + (
+            not cfg.train.fused_prop)]:
+        out.append(("normal", threefry.normal(k_z, (bsz, nz))))
+        if conditional:
+            out.append(("randint", threefry.randint(k_y, 0, c, (bsz,))
+                        .astype(np.int64)))
+    return rng, out
+
+
+@pytest.mark.parametrize("kind", sorted(STEPS))
+def test_cpu_step_draws_threefrys_bits_without_the_kernel(kind, monkeypatch):
+    """On the CPU the step's draws are the host's threefry draws, bit for
+    bit, in the step's order; neither the threefry kernel's library nor
+    any other is loaded."""
+    cfg, state, step, batch = _setup(*STEPS[kind][:2])
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a kernel library was loaded on the CPU")
+
+    monkeypatch.setattr(_build, "load", refuse)
+    monkeypatch.setattr(cuda_threefry, "_lib", refuse)
+    drawn = []
+    for name in ("normal", "randint", "bernoulli"):
+        def spy(*args, _draw=getattr(cuda_threefry, name), _name=name):
+            out = _draw(*args)
+            drawn.append((_name, out))
+            return out
+        monkeypatch.setattr(cuda_threefry, name, spy)
+    rng, expected = state.rng, []
+    for _ in range(max(cfg.train.steps_per_call, 1)):
+        rng, draws = _host_draws(cfg, rng, batch)
+        expected += draws
+    _profiled(lambda: step(state, batch))
+    assert [n for n, _ in drawn] == [n for n, _ in expected]
+    for (name, got), (_, ref) in zip(drawn, expected):
+        assert got.device.type == "cpu" and got.numpy().dtype == ref.dtype
+        np.testing.assert_array_equal(got.numpy(), ref, err_msg=name)
+    assert np.array_equal(state.rng, rng)
+    assert "device_draws" not in tracing.counters()
 
 
 @pytest.mark.parametrize("kind", sorted(STEPS))

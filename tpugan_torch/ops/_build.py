@@ -5,8 +5,9 @@ shared library with a plain C interface, loaded with ``ctypes``.  A library
 is built once, at first use, into ``tpugan_torch/_build/`` (listed in
 ``.gitignore``), under a name that hashes its sources and flags, so an edit
 rebuilds it.  ``build_all`` starts one ``nvcc`` per source at once.  Every
-kernel runs on the Hopper mainloop of ``csrc/igemm_sm90.cuh``, and the fp32
-entry points of the conv kernels on ``csrc/igemm_f32.cuh``; they need no
+conv kernel runs on the Hopper mainloop of ``csrc/igemm_sm90.cuh``, and the
+fp32 entry points of the conv kernels on ``csrc/igemm_f32.cuh``; the train
+step's draws (``csrc/cuda_threefry.cu``) include neither.  They need no
 library beyond the CUDA runtime (the TMA tensor maps are encoded through
 the runtime's driver entry point).
 
@@ -31,7 +32,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 SOURCES = ("cuda_convt", "cuda_gen", "cuda_gen2", "cuda_conv",
-           "cuda_conv_stats")
+           "cuda_conv_stats", "cuda_threefry")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 GXX_FLAGS = ["-O3", "-shared", "-fPIC", "-pthread", "-std=c++17"]

@@ -82,15 +82,24 @@ RNG: each step splits the state's threefry key into 8 as the JAX step does
 last), and draws the hflip bits, both latents, both fake label sets, the
 penalty's interpolation weights, the resident batch's indices and the
 augmentation from the same keys, so from one carried state the two
-packages see the same noise and data.  Batch entries ``z_d`` / ``z_g``,
-``y_fake_d`` / ``y_fake_g`` and ``gp_alpha`` replace the draws (the JAX
-step's parity hooks).  The LR under a schedule is set before each update
-from the optimizer's own count (``train/state.py``).
+packages see the same noise and data.  The key stays a host array and is
+split on the host.  The hflip bits, the latents, the fake labels and the
+indices under ``sampling="replacement"`` are drawn where the batch lies,
+by ``ops/cuda_threefry.py``: on a CUDA device one launch of the threefry
+kernel each, written on the current stream (no copy, no wait; under a
+``data`` mesh the global draw at this rank's rows, by an index uploaded
+once a batch size); on the CPU the host draw itself.  Batch entries
+``z_d`` / ``z_g``, ``y_fake_d`` / ``y_fake_g`` and ``gp_alpha`` replace the
+draws (the JAX step's parity hooks); they, the ``"epoch"`` permutations,
+the penalty's weights and the augmentation's draws are host arrays copied
+to the device.  The LR under a schedule is set before each update from the
+optimizer's own count (``train/state.py``).
 
 Spans (``utils/tracing.py``, on while a ``torch.profiler`` records): each
-step is ``step``, holding ``step.draws`` (the host's threefry splits and
-draws with their blocking copies to the device, each an ``h2d`` span and
-counted as ``h2d_blocking``; the penalty's under ``step.d_grads``),
+step is ``step``, holding ``step.draws`` (the host's threefry splits, the
+draws' launches, counted as ``device_draws``, and the host draws' blocking
+copies to the device, each an ``h2d`` span and counted as
+``h2d_blocking``; the penalty's under ``step.d_grads``),
 ``step.real_batch`` (gather, uint8 to float, flip), ``step.grads``
 (FusedProp) or ``step.d_grads`` and ``step.g_grads``, and ``step.d_update``
 and ``step.g_update`` (the optimizers; ``step.ema`` under G's).
@@ -110,7 +119,7 @@ from tpugan_torch.configs import Config
 from tpugan_torch.losses.adversarial import (d_loss_fake_fn, d_loss_fn,
                                              d_loss_real_fn, g_loss_fn)
 from tpugan_torch.losses.gradient_penalty import gradient_penalty
-from tpugan_torch.ops import convs
+from tpugan_torch.ops import convs, cuda_threefry
 from tpugan_torch.ops.augment import apply_policy, parse_policy
 from tpugan_torch.parallel import collectives
 from tpugan_torch.parallel.mesh import (axis_group, axis_index, axis_size,
@@ -302,10 +311,18 @@ def build_train_step(cfg: Config, g: nn.Module, d: nn.Module, mesh=None
         return (per * n_data,
                 np.arange(data_index * per, (data_index + 1) * per))
 
-    def take(a, rows):
-        """The global batch's draw (or hook value) ``a`` at this rank's
-        rows."""
-        return a if rows is None or a is None else np.asarray(a)[rows]
+    row_index = {}  # (global batch size, device) -> this rank's rows there
+
+    def local(t):
+        """The global batch's draw (or hook value) ``t``, a tensor, at this
+        rank's rows."""
+        if n_data == 1:
+            return t
+        bsz = t.shape[0]
+        if (bsz, t.device) not in row_index:
+            row_index[bsz, t.device] = h2d(
+                local_rows(bsz, n_data, data_index, accum), t.device)
+        return t.index_select(0, row_index[bsz, t.device])
 
     def share(loss):
         """This rank's part of a global-batch mean from its local mean."""
@@ -375,21 +392,22 @@ def build_train_step(cfg: Config, g: nn.Module, d: nn.Module, mesh=None
         with span("step"), convs.using_impl("xla"), batch_ctx(mesh):
             return _step(state, batch)
 
-    def _real_rows(state, batch, k_data, k_flip, bsz, rows, dev):
-        """The host's draws for the real batch, on the device: the
-        resident batch's indices and the hflip bits (None where there are
-        none)."""
+    def _real_rows(state, batch, k_data, k_flip, bsz, dev):
+        """The draws for the real batch, on the device: the resident
+        batch's indices and the hflip bits (None where there are none)."""
         idx = flip = None
         if "dataset_images" in batch:
             n_set = batch["dataset_images"].shape[0]
             if cfg.data.sampling == "epoch":
-                idx = epoch_indices(root, state.step, bsz_cfg, n_set)
+                idx = h2d(epoch_indices(root, state.step, bsz_cfg, n_set)
+                          .astype(np.int64), dev)
             else:  # uniform with replacement
-                idx = threefry.randint(k_data, 0, n_set, (bsz_cfg,))
-            idx = h2d(take(idx, rows).astype(np.int64), dev)
+                idx = cuda_threefry.randint(k_data, 0, n_set, (bsz_cfg,),
+                                            dev)
+            idx = local(idx)
         if hflip:
-            flip = h2d(take(
-                threefry.uniform(k_flip, (bsz, 1, 1, 1)) < 0.5, rows), dev)
+            flip = local(cuda_threefry.bernoulli(k_flip, 0.5, (bsz, 1, 1, 1),
+                                                 dev))
         return idx, flip
 
     def _real_batch(batch, idx, flip):
@@ -419,17 +437,15 @@ def build_train_step(cfg: Config, g: nn.Module, d: nn.Module, mesh=None
 
         def latents(name, key):
             z = batch.get(name)
-            if z is None:
-                z = threefry.normal(key, (bsz, nz))
-            return h2d(take(z, rows), dev).float()
+            return local(cuda_threefry.normal(key, (bsz, nz), dev)
+                         if z is None else h2d(z, dev).float())
 
         def fake_labels(name, key):
             if not conditional:
                 return None
             y = batch.get(name)
-            if y is None:
-                y = threefry.randint(key, 0, n_classes, (bsz,))
-            return h2d(take(y, rows), dev).long()
+            return local(cuda_threefry.randint(key, 0, n_classes, (bsz,), dev)
+                         if y is None else h2d(y, dev).long())
 
         with span("step.draws"):
             if policy:
@@ -439,12 +455,9 @@ def build_train_step(cfg: Config, g: nn.Module, d: nn.Module, mesh=None
                 (rng, k_zd, k_zg, k_gp, k_yd, k_yg, k_flip,
                  k_data) = threefry.split(state.rng, 8)
                 k_aug_d = k_aug_g = None
-            # the global batch's size, and this rank's rows of it
+            # the global batch's size
             bsz = bsz_cfg if resident else batch["image"].shape[-4] * n_data
-            rows = (None if n_data == 1 else
-                    local_rows(bsz, n_data, data_index, accum))
-            idx, flip = _real_rows(state, batch, k_data, k_flip, bsz, rows,
-                                   dev)
+            idx, flip = _real_rows(state, batch, k_data, k_flip, bsz, dev)
             z_d = latents("z_d", k_zd)
             y_fake_d = fake_labels("y_fake_d", k_yd)
         with span("step.real_batch"):

@@ -11,7 +11,13 @@ benchmark's traced slice); off, each costs one flag check.
   copy of a host array from pageable memory on the current stream; where
   ``device`` is a card, the span ``h2d`` (the host waits there for every
   operation queued before the copy) and the counters ``h2d_blocking`` and
-  ``h2d_blocking_bytes``.
+  ``h2d_blocking_bytes``.  The train step copies this way only what the
+  host draws: the parity hooks, ``"epoch"`` sampling's indices and the
+  penalty's weights.
+- The step's hflip bits, latents, fake labels and resident indices are
+  drawn on the card (``ops/cuda_threefry.py``), one launch each, no copy:
+  the counters ``device_draws`` and ``device_draws_bytes`` (the tensors
+  written).
 
 The profiler records nothing on a thread it was not started from, so work
 done on another thread is timed there and counted where its result is
