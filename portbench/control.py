@@ -1,8 +1,8 @@
 """The readings the limits of ``correct`` are set from, at a cell's own
 size: the program's first steps against the reference on many seeds, the
 control (the reference in the nearest precision below the
-configuration's, ``check.CONTROL``) and a planted fault (half of every
-batch left out, the mean over the rest) in the program's place on a few.
+configuration's, ``check.CONTROL``) and the planted faults (``faults``)
+in the program's place on a few.
 
     python3 portbench/control.py --workload <cell> --seeds 1,2,... \
         --control-seeds 101,102,103 [--out FILE]
@@ -37,6 +37,18 @@ def worst_leaves(prog: dict, ref: dict, n: int = 3) -> dict:
 
 def fused(cell) -> bool:
     return bool(cell.cfg["train"]["fused_prop"])
+
+
+def faults(cell) -> dict:
+    """{name: ``Cell.reference`` keywords} of the faults planted in the
+    reference: half of every batch left out (the mean over the rest), and
+    where the model takes labels each real label flipped and the fake
+    labels drawn from each other's keys."""
+    out = {"fault_half_batch": {"rows_kept": 0.5}}
+    if cell.labels is not None:
+        out["fault_labels_flipped"] = {"label_fault": "flip"}
+        out["fault_fake_labels_wrong_key"] = {"label_fault": "wrong_key"}
+    return out
 
 
 def main(argv=None) -> int:
@@ -77,9 +89,9 @@ def main(argv=None) -> int:
                             program=False)
         ref = cell.reference()
         lowp = CONTROL[cell.cfg["train"]["precision"]]
-        for kind, got in ((f"control_{lowp}", cell.reference(lowp)),
-                          ("fault_half_batch",
-                           cell.reference(rows_kept=0.5))):
+        planted = {f"control_{lowp}": {"precision": lowp}, **faults(cell)}
+        for kind, kw in planted.items():
+            got = cell.reference(**kw)
             emit({"cell": args.workload, "kind": kind, "seed": seed,
                   "readings": readings(got, ref, fused(cell)),
                   "worst": worst_leaves(got, ref), "program": got,

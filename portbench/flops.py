@@ -6,8 +6,10 @@ matmul's multiply-adds (2 operations each), each input byte read once and
 each output byte written once.  Operands in bf16 are bound at the bf16
 tensor-core peak, fp32 operands at the TF32 peak, whether the program
 takes one TF32 pass, three, or the FFMA units: the bound is the work's,
-not the route's.  Elementwise work (BatchNorm, activations, the optimizer)
-is not counted.
+not the route's.  Elementwise work (BatchNorm, activations, the optimizer,
+a label's embedding lookup) is not counted.  A layer's input gradient is
+counted whole where any part of its input needs one: a conditional D's
+first conv takes [image, label plane] as one input.
 """
 
 from __future__ import annotations
@@ -20,12 +22,18 @@ PEAK_BYTES = 3.35e12
 ELEMENT_BYTES = {"bf16": 2, "fp32": 4}
 
 
+def embed_dim(model: dict) -> int:
+    """The label embedding's width of a conditional DCGAN, else 0."""
+    return model["embed_dim"] if model.get("arch") == "cdcgan" else 0
+
+
 def g_layers(model: dict) -> list[tuple[str, int, int, int]]:
     """G's layers as (kind, input side, cin, cout): the Dense head to a
-    4x4 map, then ConvT(4, 2, 1) doubling the side (32, 64, 128 px)."""
+    4x4 map (from z, and the label's embedding where G is conditional),
+    then ConvT(4, 2, 1) doubling the side (32, 64, 128 px)."""
     k = int(math.log2(model["image_size"] // 4))
     ch = [model["ngf"] * 2 ** (k - 1 - i) for i in range(k)]
-    out = [("dense", 1, model["nz"], 16 * ch[0])]
+    out = [("dense", 1, model["nz"] + embed_dim(model), 16 * ch[0])]
     side = 4
     for cin, cout in zip(ch, ch[1:] + [model["channels"]]):
         out.append(("convt", side, cin, cout))
@@ -34,12 +42,15 @@ def g_layers(model: dict) -> list[tuple[str, int, int, int]]:
 
 
 def d_layers(model: dict) -> list[tuple[str, int, int, int]]:
-    """D's layers as (kind, input side, cin, cout): Conv(4, 2, 1) halving
-    the side, then the Dense tail over the 4x4 map."""
+    """D's layers as (kind, input side, cin, cout): where D is conditional
+    first ``proj``, the Dense from the label's embedding to the S x S
+    plane that joins the image as one more channel; then Conv(4, 2, 1)
+    halving the side, then the Dense tail over the 4x4 map."""
     k = int(math.log2(model["image_size"] // 4))
     ch = [model["ndf"] * 2 ** i for i in range(k)]
-    out, side = [], model["image_size"]
-    for cin, cout in zip([model["channels"]] + ch[:-1], ch):
+    side, e = model["image_size"], embed_dim(model)
+    out = [("dense", 1, e, side * side)] if e else []
+    for cin, cout in zip([model["channels"] + bool(e)] + ch[:-1], ch):
         out.append(("conv", side, cin, cout))
         side //= 2
     out.append(("dense", 1, 16 * ch[-1], 1))
@@ -62,22 +73,34 @@ def forward_flops(layers, n: int) -> int:
     return sum(layer_flops(layer, n) for layer in layers)
 
 
-def step_flops(model: dict, n: int, fused: bool) -> int:
-    """The operations one train step needs at batch n.  A backward takes a
-    layer's forward count for the weight gradient where the weight trains
-    and again for the input gradient where the input needs one (not for
-    data or z).
+def pass_flops(layers, n: int, weights: bool, first_input: bool) -> int:
+    """A forward and its backward: each layer's forward count again for
+    its weight gradient where the weights train, and again for its input
+    gradient, the first layer's only where its input needs one."""
+    f = forward_flops(layers, n)
+    return 3 * f - (0 if weights else f) - (
+        0 if first_input else layer_flops(layers[0], n))
 
-    FusedProp: G forward; D on the reals (weights), D on the fakes (weights
-    and input); G backward.  Alternating: G forward without a graph; D on
-    the reals and on the fakes (weights); G forward, D forward with its
-    weights frozen (input gradient), G backward."""
+
+def step_flops(model: dict, n: int, fused: bool) -> int:
+    """The operations one train step needs at batch n.
+
+    FusedProp: G forward and backward; D on the reals (weights), D on the
+    fakes (weights and input).  Alternating: G forward without a graph; D
+    on the reals and on the fakes (weights); G forward and backward, D
+    with its weights frozen (input gradient).  The first layer's input
+    needs a gradient where it trains something: G's head not for z, but
+    for a conditional G's embedding; D's first layer on a fake G trains
+    through, and a conditional D's ``proj`` for D's embedding while D
+    trains (and the image's conv then for the plane)."""
     gl, dl = g_layers(model), d_layers(model)
-    fg, fd = forward_flops(gl, n), forward_flops(dl, n)
-    g0, d0 = layer_flops(gl[0], n), layer_flops(dl[0], n)
+    cond = bool(embed_dim(model))
     if fused:
-        return fg + 2 * fd + (2 * fd - d0) + 2 * fd + (2 * fg - g0)
-    return fg + 2 * (fd + 2 * fd - d0) + fg + 2 * fd + (2 * fg - g0)
+        return (pass_flops(gl, n, True, cond) + pass_flops(dl, n, True, cond)
+                + pass_flops(dl, n, True, True))
+    return (forward_flops(gl, n) + 2 * pass_flops(dl, n, True, cond)
+            + pass_flops(gl, n, True, cond) + pass_flops(dl, n, False,
+                                                        not cond))
 
 
 def conv_stats_work(n: int, side: int, cin: int, cout: int,
@@ -101,4 +124,4 @@ def least_seconds(flops: float, nbytes: float, precision: str) -> float:
 def conv_stats_layers(model: dict) -> list[tuple[str, int, int, int]]:
     """D's conv layers that run kernel 5 in a train step: those with
     BatchNorm (every one but the first)."""
-    return [layer for layer in d_layers(model)[1:] if layer[0] == "conv"]
+    return [layer for layer in d_layers(model) if layer[0] == "conv"][1:]

@@ -8,9 +8,11 @@ why it exists) and ``metrics/<name>.py`` (a reader that returns the
 metric from the run, or None where it finds nothing to read).
 
 Set-up builds the program's ``Trainer`` (``tpugan_torch``) on the cell's
-configuration with the dataset and the weights the benchmark makes from
-the seed, and drives its ``step_fn`` through its first calls, with the
-window's own feed (the ``Trainer``'s: the resident dataset, or the host
+configuration with the dataset (its labels too, where the model takes
+them) and the weights the benchmark makes from the seed (by the
+reference of the configuration's ``model.arch``, ``reference/<arch>.py``),
+and drives its ``step_fn`` through its first calls, with the window's own
+feed (the ``Trainer``'s: the resident dataset, or the host
 pipeline); hooks read its first three steps for the check
 (``check.FirstSteps``).  The window then runs whole calls of the same
 ``step_fn`` on the same state until the seconds are up, fetching the
@@ -39,7 +41,6 @@ from typing import Optional
 import torch
 
 from portbench import check, dataset
-from portbench.reference import dcgan as ref_dcgan
 from portbench.reference import train as ref_train
 
 HERE = Path(__file__).resolve().parent
@@ -125,9 +126,14 @@ class Cell:
         self.split["imports"] = time.perf_counter() - t
         t = time.perf_counter()
         m = self.cfg["model"]
-        self.images = dataset.make_images(
-            int(self.work["traffic"]["dataset_images"]), m["image_size"],
-            m["channels"], seed, self.device)
+        n = int(self.work["traffic"]["dataset_images"])
+        self.images = dataset.make_images(n, m["image_size"], m["channels"],
+                                          seed, self.device)
+        self.data = {"images": self.images}
+        self.labels = None
+        if m["n_classes"] > 0:
+            self.labels = dataset.make_labels(n, m["n_classes"], seed)
+            self.data["labels"] = self.labels
         sync(self.device)
         if self.device.type == "cuda":
             # the set is made on the card in scratch buffers that no
@@ -137,11 +143,10 @@ class Cell:
             torch.cuda.reset_peak_memory_stats(self.device)
         self.split["dataset"] = time.perf_counter() - t
         t = time.perf_counter()
-        self.weights = ref_dcgan.make_weights(m, seed, self.device)
+        self.weights = ref_train.of(m).make_weights(m, seed, self.device)
         if not program:  # the reference's inputs alone
             return
-        self.trainer = Trainer(Config.from_dict(self.cfg),
-                               data={"images": self.images},
+        self.trainer = Trainer(Config.from_dict(self.cfg), data=self.data,
                                device=self.device)
         load_weights(self.trainer, self.weights)
         sync(self.device)
@@ -154,7 +159,7 @@ class Cell:
             _build.load("cuda_conv_stats")
         self.split["kernels"] = time.perf_counter() - t
         t = time.perf_counter()
-        self.batches = iter(self.trainer._batches({"images": self.images}))
+        self.batches = iter(self.trainer._batches(self.data))
         self.split["feed"] = time.perf_counter() - t
         self.k = max(int(self.cfg["train"]["steps_per_call"]), 1)
         self.state = self.trainer.state
@@ -193,12 +198,13 @@ class Cell:
         if self.device.type == "cuda":
             torch.cuda.empty_cache()
 
-    def reference(self, precision: str = "fp32",
-                  rows_kept: float = 1.0) -> dict:
+    def reference(self, precision: str = "fp32", rows_kept: float = 1.0,
+                  label_fault: str = "") -> dict:
         return ref_train.follow(self.cfg, self.weights, self.images,
                                 self.seed, feed=feed_of(self.cfg),
-                                steps=check.STEPS, precision=precision,
-                                rows_kept=rows_kept, device=self.device)
+                                labels=self.labels, steps=check.STEPS,
+                                precision=precision, rows_kept=rows_kept,
+                                label_fault=label_fault, device=self.device)
 
 
 def load_weights(trainer, weights: dict) -> None:

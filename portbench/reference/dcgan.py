@@ -51,20 +51,26 @@ def param_spec(model: dict) -> dict:
                                         and model["d_batchnorm"]):
         raise ValueError("the reference is the unconditional DCGAN with BN "
                          "in G and D")
+    return stack_spec(model, model["nz"], model["channels"])
+
+
+def stack_spec(model: dict, head_in: int, d_in: int) -> dict:
+    """``param_spec`` of the G and D stacks with G's head taking
+    ``head_in`` features and D's first conv ``d_in`` channels."""
     gc, dc = _channels(model)
-    nz, ch = model["nz"], model["channels"]
+    ch = model["channels"]
 
     def bn(prefix, c):
         return [(f"{prefix}.bn.scale", (c,), "scale"),
                 (f"{prefix}.bn.bias", (c,), "zero")]
 
-    g = [("head.dense.w", (nz, 16 * gc[0]), "w"), *bn("head", gc[0])]
+    g = [("head.dense.w", (head_in, 16 * gc[0]), "w"), *bn("head", gc[0])]
     for i, (cin, cout) in enumerate(zip(gc[:-1], gc[1:])):
         g += [(f"block{i}.conv.w", (4, 4, cin, cout), "w"),
               *bn(f"block{i}", cout)]
     g += [("final.conv.w", (4, 4, gc[-1], ch), "w"),
           ("final.conv.b", (ch,), "zero")]
-    d = [("block0.conv.w", (4, 4, ch, dc[0]), "w"),
+    d = [("block0.conv.w", (4, 4, d_in, dc[0]), "w"),
          ("block0.conv.b", (dc[0],), "zero")]
     for i in range(1, len(dc)):
         d += [(f"block{i}.conv.w", (4, 4, dc[i - 1], dc[i]), "w"),
@@ -77,11 +83,15 @@ def param_spec(model: dict) -> dict:
 def make_weights(model: dict, seed: int, device) -> dict:
     """The weights of G and D from ``seed``: one normal draw on ``device``
     (a ``torch.Generator`` there), sliced into the leaves in spec order."""
-    spec = param_spec(model)
+    return draw_weights(param_spec(model), seed, device)
+
+
+def draw_weights(spec: dict, seed: int, device) -> dict:
+    """``make_weights`` of any spec; an "embed" leaf is N(0, 1)."""
     leaves = [leaf for part in ("g", "d") for leaf in spec[part]]
     sizes = [math.prod(shape) for _, shape, init in leaves if init != "zero"]
     gen = torch.Generator(device=device).manual_seed(2 * int(seed) % 2 ** 63)
-    r = torch.randn(sum(sizes), generator=gen, device=device) * INIT_STD
+    r = torch.randn(sum(sizes), generator=gen, device=device)
     out, at = {"g": {}, "d": {}}, 0
     for part in ("g", "d"):
         for name, shape, init in spec[part]:
@@ -89,7 +99,8 @@ def make_weights(model: dict, seed: int, device) -> dict:
                 out[part][name] = torch.zeros(shape, device=device)
                 continue
             n = math.prod(shape)
-            t = r[at:at + n].reshape(shape).clone()
+            std = 1.0 if init == "embed" else INIT_STD
+            t = r[at:at + n].reshape(shape) * std
             at += n
             out[part][name] = t + 1.0 if init == "scale" else t
     return out
@@ -114,7 +125,7 @@ def _round(x, dtype):
     return ((x / scale).to(dtype).to(x.dtype)) * scale
 
 
-def _operand(precision: str):
+def operand(precision: str):
     if precision == "fp8":
         return _Round8.apply
     return lambda t: t
@@ -145,7 +156,7 @@ def _bn(x, scale, bias):
 
 def generator(p: dict, z, model: dict, precision: str = "fp32"):
     """G's train-mode forward: z (N, nz) -> images NCHW in [-1, 1]."""
-    q = _operand(precision)
+    q = operand(precision)
     gc, _ = _channels(model)
     x = q(q(z) @ q(p["head.dense.w"]))
     x = x.reshape(z.shape[0], 4, 4, gc[0]).permute(0, 3, 1, 2)
@@ -163,7 +174,7 @@ def generator(p: dict, z, model: dict, precision: str = "fp32"):
 
 def discriminator(p: dict, x, model: dict, precision: str = "fp32"):
     """D's train-mode forward: images NCHW -> one logit an image."""
-    q = _operand(precision)
+    q = operand(precision)
     _, dc = _channels(model)
     leak = model["leak"]
     w = p["block0.conv.w"].permute(3, 2, 0, 1)

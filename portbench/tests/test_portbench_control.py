@@ -1,7 +1,8 @@
 """The control comes out not correct: the plain reference computed in the
 nearest precision below the configuration's (``check.CONTROL``: fp8 for
 the bf16 cells, TF32 for the fp32 one), put in the program's place at
-the cell's own size, fails the cell's limits.  On a card only:
+the cell's own size, fails the cell's limits; so does each planted fault
+(``control.faults``).  On a card only:
 
     python -m pytest portbench/tests -m cuda -q
 """
@@ -11,7 +12,7 @@ from __future__ import annotations
 import pytest
 import torch
 
-from portbench import check, harness
+from portbench import check, control, harness
 from portbench.tests.conftest import HERE
 
 pytestmark = pytest.mark.cuda
@@ -31,7 +32,8 @@ def test_control_fails_the_limits(cuda, cell):
     ref = c.reference()
     lowp = check.CONTROL[c.cfg["train"]["precision"]]
     fused = c.cfg["train"]["fused_prop"]
-    for got in (c.reference(lowp), c.reference(rows_kept=0.5)):
+    planted = [{"precision": lowp}, *control.faults(c).values()]
+    for got in (c.reference(**kw) for kw in planted):
         ok, compared = check.judge(check.readings(got, ref, fused),
                                    c.work["limits"])
         assert not ok, compared

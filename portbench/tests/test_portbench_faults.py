@@ -2,16 +2,20 @@
 the step that leaves the state unchanged, and half of every batch left
 out (the mean over the rest).  The run skips the look for a card and
 runs on the CPU at a small width, under the fp32 cell's limits; the
-sound run beside them is correct."""
+sound run beside them is correct.  Where the model takes labels, the
+program's first steps fail those limits against a reference given the
+wrong labels (``control.faults``): the comparison sees them."""
 
 from __future__ import annotations
 
 import pytest
 import torch
 
-from portbench import harness
+from portbench import check, control, harness
 
-CELLS = ["small.small_fp32", "small.small_fused_fp32"]
+CELLS = ["small.small_fp32", "small.small_fused_fp32",
+         "small.small_cond_fp32", "small.small_cond_fused_fp32"]
+COND = [c for c in CELLS if "cond" in c]
 
 
 def run(cell):
@@ -44,3 +48,20 @@ def test_half_batch_left_out(small_bench, cell, monkeypatch):
                         lambda self, x: forward(self, x[:x.shape[0] // 2]))
     out = run(cell)
     assert not out["correct"], out["check"]
+
+
+@pytest.mark.parametrize("fault", ["fault_labels_flipped",
+                                   "fault_fake_labels_wrong_key"])
+@pytest.mark.parametrize("cell", COND)
+def test_wrong_labels_fail_the_limits(small_bench, cell, fault):
+    c = harness.Cell(cell, 2 ** 31 + 17, "cpu")
+    prog = c.first_steps()
+    c.free()
+    fused = c.cfg["train"]["fused_prop"]
+    sound = check.judge(check.readings(prog, c.reference(), fused),
+                        c.work["limits"])
+    assert sound[0], sound[1]
+    wrong = c.reference(**control.faults(c)[fault])
+    ok, compared = check.judge(check.readings(prog, wrong, fused),
+                               c.work["limits"])
+    assert not ok, compared

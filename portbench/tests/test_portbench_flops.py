@@ -1,5 +1,6 @@
 """The operations and bytes the roofline and MFU metrics divide by,
-against numbers worked by hand for DCGAN-64 (nz 100, ngf = ndf = 64)."""
+against numbers worked by hand for DCGAN-64 (nz 100, ngf = ndf = 64) and
+a small conditional DCGAN-128."""
 
 from __future__ import annotations
 
@@ -49,6 +50,44 @@ def test_step_flops_by_hand():
     assert flops.step_flops(MODEL, 1, False) == alt
     assert alt / 1e9 == pytest.approx(2.4839, abs=1e-4)
     assert flops.step_flops(MODEL, 256, True) == 256 * fused
+
+
+def test_conditional_step_flops_by_hand():
+    # ngf = ndf = 8, nz 16, two classes embedded in 50, 128 x 128 x 3
+    cond = {"arch": "cdcgan", "image_size": 128, "channels": 3, "nz": 16,
+            "ngf": 8, "ndf": 8, "n_classes": 2, "embed_dim": 50}
+    assert flops.g_layers(cond) == [
+        ("dense", 1, 66, 2048), ("convt", 4, 128, 64), ("convt", 8, 64, 32),
+        ("convt", 16, 32, 16), ("convt", 32, 16, 8), ("convt", 64, 8, 3)]
+    assert flops.d_layers(cond) == [
+        ("dense", 1, 50, 16384), ("conv", 128, 4, 8), ("conv", 64, 8, 16),
+        ("conv", 32, 16, 32), ("conv", 16, 32, 64), ("conv", 8, 64, 128),
+        ("dense", 1, 2048, 1)]
+    assert flops.conv_stats_layers(cond) == flops.d_layers(cond)[2:6]
+    head = 2 * 66 * 2048  # z and the embedding into the head
+    convts = 2 * (4 * 4 * 128 * 64 + 8 * 8 * 64 * 32 + 16 * 16 * 32 * 16
+                  + 32 * 32 * 16 * 8 + 64 * 64 * 8 * 3) * 16
+    proj = 2 * 50 * 16384  # the embedding to the 128 x 128 plane
+    conv0 = 2 * 64 * 64 * 16 * 4 * 8  # the image and the plane
+    convs = 2 * (32 * 32 * 16 * 8 * 16 + 16 * 16 * 16 * 16 * 32
+                 + 8 * 8 * 16 * 32 * 64 + 4 * 4 * 16 * 64 * 128)
+    tail = 2 * 2048
+    fg, fd = head + convts, proj + conv0 + convs + tail
+    # FusedProp: G fwd, weights, input (the embedding trains, so the head's
+    # input too); D on the reals and on the fakes, each fwd, weights and
+    # input (D's embedding trains through proj; the fakes' image)
+    fused = 3 * fg + 3 * fd + 3 * fd
+    assert flops.step_flops(cond, 1, True) == fused
+    # alternating: G fwd; D real and fake, each fwd, weights and input
+    # (D's embedding); G fwd, weights, input; D frozen: fwd and the input
+    # gradient of every layer but proj, whose input does not train
+    alt = fg + 2 * 3 * fd + 3 * fg + (2 * fd - proj)
+    assert flops.step_flops(cond, 1, False) == alt
+    assert flops.step_flops(cond, 128, False) == 128 * alt
+    # the unconditional counts do not see the embedding's width
+    plain = dict(cond, arch="dcgan", n_classes=0, embed_dim=0)
+    assert flops.g_layers(plain)[0] == ("dense", 1, 16, 2048)
+    assert flops.d_layers(plain)[0] == ("conv", 128, 3, 8)
 
 
 def test_kernel5_work_counted_once():

@@ -11,11 +11,15 @@ import shutil
 import subprocess
 import sys
 
+import pytest
+
 from portbench import trace
 from portbench.tests.conftest import HERE, REPO, small_files
 
 
-def test_new_workload_runs_without_an_edit(tmp_path):
+@pytest.mark.parametrize("cell", ["small.small_fp32",
+                                  "small.small_cond_fp32"])
+def test_new_workload_runs_without_an_edit(tmp_path, cell):
     shutil.copytree(HERE, tmp_path / "portbench",
                     ignore=shutil.ignore_patterns("__pycache__", "tests"))
     shutil.copy(REPO / "BENCHMARK.json", tmp_path)
@@ -30,16 +34,17 @@ def test_new_workload_runs_without_an_edit(tmp_path):
             "bool(int(sys.argv[2])), 'cpu')))")
     env = dict(os.environ, PYTHONPATH=f"{tmp_path}{os.pathsep}{REPO}")
     for traced in ("0", "1"):
-        r = subprocess.run([sys.executable, "-c", code,
-                            "small.small_fp32", traced], cwd=tmp_path,
-                           env=env, capture_output=True, text=True,
-                           timeout=300)
+        r = subprocess.run([sys.executable, "-c", code, cell, traced],
+                           cwd=tmp_path, env=env, capture_output=True,
+                           text=True, timeout=300)
         assert r.returncode == 0, r.stderr[-3000:]
         out = json.loads(r.stdout.strip().splitlines()[-1])
-        assert out["correct"] and "small.small_fp32" in cells
+        assert out["correct"] and cell in cells
         if traced == "1":
             assert "dispatch_ms" in out["metrics"]
-            assert "input_wait_ms" in out["metrics"]
+            assert "step_mfu_pct" in out["metrics"]
+            if cell == "small.small_fp32":  # the host pipeline's cell
+                assert "input_wait_ms" in out["metrics"]
         else:
             assert set(out["metrics"]) == {"train_images_per_s", "setup_s"}
 

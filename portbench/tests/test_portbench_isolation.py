@@ -33,7 +33,7 @@ def test_no_jax_or_jax_package(path):
                          ids=lambda p: p.name)
 def test_reference_imports_nothing_of_the_program(path):
     tops = {m.split(".")[0] for m in imported(path)}
-    assert tops <= {"__future__", "contextlib", "math", "numpy", "torch",
-                    "portbench"}, tops
+    assert tops <= {"__future__", "contextlib", "importlib", "math", "numpy",
+                    "torch", "portbench"}, tops
     assert not [m for m in imported(path) if m.startswith("portbench")
                 and not m.startswith("portbench.reference")]
